@@ -1,6 +1,7 @@
-"""conjugategradient_tpu — a TPU-native sparse linear-algebra and iterative-solver framework.
+"""conjugategradient_tpu — a device-resident sparse linear-algebra and iterative-solver
+framework in JAX.
 
-A from-scratch JAX / XLA / Pallas / shard_map re-design of the capabilities of
+A from-scratch JAX / XLA / shard_map re-design of the capabilities of
 aokomoriuta/ConjugateGradient (a CPU / CUDA+cuBLAS+cuSPARSE / handmade-OpenCL /
 ViennaCL comparative CG study with multi-GPU row-block partitioning and halo
 exchange):
@@ -9,12 +10,13 @@ exchange):
                  deterministic SPD problem generators, row-block partition math
                  with halo-range discovery, and a pure-numpy CPU oracle.
 - ``ops``      — device BLAS-1 (dot / axpy / scal / norms in all three of the
-                 reference's conventions) and SpMV for every format; XLA paths
-                 plus Pallas TPU kernels with VMEM vector-window tiling.
+                 reference's conventions), SpMV/SpMM for every format and
+                 grid stencils — all plain XLA — plus the precision policy and
+                 double-float arithmetic.
 - ``solvers``  — a fully device-resident Krylov family complete by symmetry
                  class (CG/PCG, MINRES, BiCGStab, restarted GMRES, CGNR, the
                  dot-free Chebyshev iteration; ``lax.while_loop`` — scalars
-                 never leave the chip), mixed-precision iterative refinement,
+                 never leave the device), mixed-precision iterative refinement,
                  deflation, multi-RHS block solves, LOBPCG, implicit-adjoint
                  differentiation through solves, convergence policy, residual
                  tracing, and eigen diagnostics.
@@ -23,7 +25,7 @@ exchange):
                  (the "Mg" that the reference's name promises but never ships).
 - ``parallel`` — mesh row-block sharding via ``shard_map`` and GSPMD: ``psum``
                  dots replace the reference's host-side ``Sum()`` allreduce and
-                 ``ppermute`` halo shifts over ICI/DCN replace its staged
+                 ``ppermute`` halo shifts over the device interconnect replace its staged
                  device->host->device boundary copies; sixteen distributed designs
                  including communication-reduced variants.
 - ``models``   — problem families: the reference's five benchmark workloads and

@@ -11,7 +11,7 @@ here one function routes to the right solver:
   hang a multigrid on
 - ``method="mgcg"``   — multigrid-preconditioned CG (needs ``grid``)
 - ``method="refined"``— mixed-precision iterative refinement to fp64 tol
-  (``device_residual=True`` keeps the outer loop on chip in double-float)
+  (``device_residual=True`` keeps the outer loop on the device in double-float)
 - ``method="deflated_cg"`` — def-CG with a Lanczos-probed deflation space
   (``k=``/``m=`` or a prebuilt ``deflation=`` for solve sequences)
 - ``method="sharded_cg"`` — row-block-sharded CG over the device mesh
@@ -41,7 +41,7 @@ here one function routes to the right solver:
   row-sharded SA levels, exact-hop ring gathers, replicated coarse tail)
 - ``method="bjacobi_cg"`` / ``"bjacobi_bicgstab"`` / ``"bjacobi_gmres"`` —
   block-Jacobi preconditioning (``block_size=`` through kw; batched dense
-  block inverses, one MXU matmul per application)
+  block inverses, one batched matmul per application)
 - ``method="minres"`` / ``"jacobi_minres"`` — symmetric INDEFINITE systems
   (Helmholtz); constant memory, monotone ``||r||`` (``solvers.minres``)
 - ``method="idr"`` — IDR(s) for nonsymmetric systems (``s=`` through kw,
@@ -698,7 +698,7 @@ def _auto_method(A, grid) -> str:
         # stagnates/diverges at scale on convection-dominated systems
         # (255^2 eps=0.5 tol 2e-6: BiCGStab blows up to 5e+16 at a
         # 20000-iteration cap while IDR(4) converges in 7010 its —
-        # test_api_auto; on-chip twin artifacts/r3s2_onchip.json).  With a
+        # test_api_auto).  With a
         # grid the V-cycle-preconditioned form is the robust choice.
         return "mg_bicgstab" if grid is not None else "idr"
     if not _spd_probe(A, diag):

@@ -6,7 +6,7 @@ have.  Two standard routes:
 
 - **Matrix Market** (``.mtx``, the NIST/SuiteSparse interchange format):
   ``load_matrix_market`` / ``save_matrix_market``.  Loading picks the
-  TPU-appropriate storage automatically: matrices whose nonzeros sit on few
+  device-appropriate storage automatically: matrices whose nonzeros sit on few
   distinct diagonals (relative to a storage-blowup budget) land in DIA —
   the format every fast path here keys on — everything else in CSR.
 - **scipy.sparse**: ``from_scipy`` / ``to_scipy``.  ``to_scipy`` also makes
@@ -38,7 +38,7 @@ def from_scipy(m) -> CsrMatrix:
     as-is (canonicalizing on a copy only when scipy hasn't already) instead
     of round-tripping through COO + an O(nnz log nnz) lexsort — measured as
     THE dominant term of the blocked-AMG setup (2.0 of 3.4 s at 511^2,
-    eighteen conversions per hierarchy; VERDICT r4 #5)."""
+    eighteen conversions per hierarchy)."""
     import scipy.sparse as sp
 
     from conjugategradient_tpu.core.formats import csr_from_parts

@@ -1,6 +1,6 @@
 """Row-block partition math with halo-range discovery.
 
-TPU-native re-design of the reference's distributed shard setup:
+Device-mesh re-design of the reference's distributed shard setup:
 
 - equal / remainder-aware row splits (``Mgcg/cuBlas/Mgcg/
   ConjugateGradientParallelGpu.cs:271-277,590-594`` and

@@ -134,7 +134,7 @@ WORKLOADS = {
             x0_kind="i/10",
             source="R/CG.R:1-24",
         ),
-        # --- BASELINE.json config ladder (new TPU-scale targets) ---
+        # --- BASELINE.json config ladder (new device-scale targets) ---
         Workload(
             name="ladder_dense_1k",
             description="ladder 1: dense-scale CG on 1k SPD system (CPU-runnable fp64)",

@@ -1,45 +1,73 @@
-"""Extended-precision reductions for fp64-less TPU cores.
+"""Precision policy and extended-precision reductions.
+
+``MATMUL_PRECISION`` is the one precision every fp32 ``dot``/``einsum``/
+``matmul`` in the package passes.  Left unset, XLA may run an fp32 matrix
+product in TF32 (GPU tensor cores) or bf16 passes, which keep about three
+decimal digits — too few for a coarse-grid solve, a Gram matrix or a
+block-Jacobi apply inside a Krylov loop.  The products it governs are
+small or bandwidth-bound, so full precision costs next to nothing.
 
 The reference is fp64 end-to-end (CUDA ``double``, OpenCL ``-D REAL=double``).
-TPU vector units have no native fp64, so reaching the reference's tolerances
-in fp32 storage needs compensated arithmetic on the *reductions* (dots are
-where CG loses accuracy; the axpy updates are benign).
+Reaching its tolerances from fp32 storage needs compensated arithmetic on
+the *reductions* (dots are where CG loses accuracy; the axpy updates are
+benign).  Two tools, both fully vectorized (no sequential scans):
 
-Two tools, both fully vectorized (no sequential scans — a lesson measured on
-chip: a lane-serial compensation loop costs ~1 ms per dot at n=1M, turning
-the entire CG iteration into dot-bound):
-
-- ``dot2``     — error-free transformed dot: Dekker-split TwoProduct per
-  element (captures every product rounding error exactly), then two tree
-  sums.  Error ~ tree-sum error (O(log n * eps)) instead of the naive
+- ``dot2``     — error-free transformed dot: TwoProduct per element
+  (captures every product rounding error exactly), then two tree sums.
+  Error ~ tree-sum error (O(log n * eps)) instead of the naive
   O(sqrt(n) * eps) random walk.  ~3x the FLOPs of a plain dot, same memory
-  traffic, all VPU-parallel.
-- ``kahan_sum`` — Neumaier-compensated sequential combine over wide chunk
-  partials, for small-count host-style exact sums (not the hot path).
+  traffic.
+- ``kahan_sum`` — compensated tree sum for small-count exact sums.
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
+from jax import lax
 
-#: Dekker split factors: 2^ceil(m/2) + 1 for an m-bit mantissa.
-_SPLIT = {jnp.dtype(jnp.float32): 4097.0, jnp.dtype(jnp.float64): 134217729.0}
+#: Precision of every fp32 matrix product in the package (see module doc).
+MATMUL_PRECISION = lax.Precision.HIGHEST
+
+#: ``_split`` per dtype: the unsigned view of the bits and how many low
+#: stored significand bits to round away — float32 keeps 12 of its 24
+#: significand bits, float64 26 of 53.
+_SPLIT_BITS = {
+    jnp.dtype(jnp.float32): (jnp.uint32, 12),
+    jnp.dtype(jnp.float64): (jnp.uint64, 27),
+}
 
 
 def _split(a):
-    f = _SPLIT.get(jnp.dtype(a.dtype), 4097.0)
-    c = a * f
-    hi = c - (c - a)
+    """a = hi + lo exactly, with hi rounded to half the significand, so the
+    product of any two halves is exact in a's dtype.
+
+    The rounding works on the bit pattern (add half a unit, clear the low
+    bits).  Dekker's ``hi = c - (c - a)`` with ``c = a * 4097`` is not used:
+    XLA contracts ``a * 4097 - a`` into one FMA, which silently breaks that
+    split; this one has no multiply to contract, and ``a - hi`` is exact."""
+    try:
+        utype, drop = _SPLIT_BITS[jnp.dtype(a.dtype)]
+    except KeyError:
+        raise TypeError(f"no exact split for dtype {a.dtype}") from None
+    bits = lax.bitcast_convert_type(a, utype)
+    bits = (bits + utype(1 << (drop - 1))) & ~utype((1 << drop) - 1)
+    hi = lax.bitcast_convert_type(bits, a.dtype)
     return hi, a - hi
 
 
 def two_prod(a, b):
-    """Error-free product: a*b = p + e exactly (Dekker, FMA-free)."""
-    p = a * b
+    """Error-free product: a*b = p + e exactly.
+
+    Every multiply is of ``_split`` halves and exact; the two cross terms
+    sum exactly (they share a binade), one TwoSum carries the rounding of
+    ``hh + cross`` into e, and adding the last product to that error is
+    exact again.  So an FMA that contracts any multiply into its add gives
+    the same bits — the transform survives XLA's contraction, where
+    Dekker's ``a * b - p`` does not."""
     ah, al = _split(a)
     bh, bl = _split(b)
-    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
-    return p, e
+    p, e = _two_sum(ah * bh, ah * bl + al * bh)
+    return p, e + al * bl
 
 
 def _two_sum(a, b):
@@ -106,4 +134,5 @@ def kahan_dot(a: jnp.ndarray, b: jnp.ndarray):
 
 def promote_dot(a: jnp.ndarray, b: jnp.ndarray, dtype=jnp.float32):
     """Dot with explicit accumulation dtype (e.g. bf16 storage, fp32 accum)."""
-    return jnp.vdot(a.astype(dtype), b.astype(dtype), preferred_element_type=dtype)
+    return jnp.vdot(a.astype(dtype), b.astype(dtype), precision=MATMUL_PRECISION,
+                    preferred_element_type=dtype)

@@ -1,8 +1,8 @@
 """Sparse x dense: BSR SpMV and SpMM (multi-vector products) for every format.
 
-SpMM is the op that puts the FLOPs where TPUs want them: with a (n, k) block
-of right-hand sides, DIA SpMM is k-wide VPU streams, and BSR SpMM batches
-dense (R, C) x (C, k) products straight onto the MXU.  Neither exists in the
+SpMM raises arithmetic intensity: with a (n, k) block of right-hand sides,
+DIA SpMM reads each coefficient once for k products, and BSR SpMM batches
+dense (R, C) x (C, k) block products.  Neither exists in the
 reference (single-RHS throughout); required by the BASELINE north-star's
 "SpMV/SpMM".
 """
@@ -20,6 +20,7 @@ from conjugategradient_tpu.core.formats import (
     DiaMatrix,
     EllMatrix,
 )
+from conjugategradient_tpu.ops.precision import MATMUL_PRECISION
 
 
 def spmv_bsr(A: BsrMatrix, x: jnp.ndarray) -> jnp.ndarray:
@@ -31,7 +32,8 @@ def spmv_bsr(A: BsrMatrix, x: jnp.ndarray) -> jnp.ndarray:
     R, C = A.block_shape
     xb = x.reshape(-1, C)  # (m//C, C)
     gathered = xb[A.indices]  # (nblocks, C)
-    prods = jnp.einsum("brc,bc->br", A.data, gathered, preferred_element_type=x.dtype)
+    prods = jnp.einsum("brc,bc->br", A.data, gathered,
+                       precision=MATMUL_PRECISION, preferred_element_type=x.dtype)
     yb = jax.ops.segment_sum(
         prods, A.block_row_ids, num_segments=A.shape[0] // R, indices_are_sorted=True
     )
@@ -64,12 +66,13 @@ def spmm_coo(A: CooMatrix, B: jnp.ndarray) -> jnp.ndarray:
 
 
 def spmm_bsr(A: BsrMatrix, B: jnp.ndarray) -> jnp.ndarray:
-    """Batched (R, C) x (C, k) block products on the MXU."""
+    """Batched (R, C) x (C, k) block products."""
     R, C = A.block_shape
     k = B.shape[1]
     Bb = B.reshape(-1, C, k)  # (m//C, C, k)
     gathered = Bb[A.indices]  # (nblocks, C, k)
-    prods = jnp.einsum("brc,bck->brk", A.data, gathered, preferred_element_type=B.dtype)
+    prods = jnp.einsum("brc,bck->brk", A.data, gathered,
+                       precision=MATMUL_PRECISION, preferred_element_type=B.dtype)
     Yb = jax.ops.segment_sum(
         prods, A.block_row_ids, num_segments=A.shape[0] // R, indices_are_sorted=True
     )
@@ -77,7 +80,8 @@ def spmm_bsr(A: BsrMatrix, B: jnp.ndarray) -> jnp.ndarray:
 
 
 def spmm_dense(A: DenseMatrix, B: jnp.ndarray) -> jnp.ndarray:
-    return jnp.dot(A.data, B, preferred_element_type=B.dtype)
+    return jnp.dot(A.data, B, precision=MATMUL_PRECISION,
+                   preferred_element_type=B.dtype)
 
 
 def spmm(A, B: jnp.ndarray) -> jnp.ndarray:

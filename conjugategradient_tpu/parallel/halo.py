@@ -1,4 +1,4 @@
-"""Halo exchange and per-shard SpMV — the communication backend, TPU-native.
+"""Halo exchange and per-shard SpMV — the communication backend.
 
 The reference's halo exchange stages boundary slices of the search-direction
 vector device->host->device through pinned .NET arrays, one neighbor pair at a

@@ -1,16 +1,16 @@
 """Multi-host meshes: the DCN-spanning deployment path (ladder rung 5).
 
 The reference's multi-device story ends at one host (``Parallel.For`` over
-local GPUs); scaling further there would have meant MPI.  On TPU pods the
-same SPMD programs in this package run unchanged across hosts — the *only*
+local GPUs); scaling further there would have meant MPI.  On a multi-host
+cluster the same SPMD programs in this package run unchanged across hosts — the *only*
 additions are process-group initialisation and building the mesh from global
 devices.  This module wraps exactly that; there is nothing else to port,
-because ``psum``/``ppermute`` already ride ICI within a slice and DCN across
-slices, scheduled by XLA.
+because ``psum``/``ppermute`` already ride the fast links within a host and
+the network across hosts, scheduled by XLA.
 
 Single-host environments (this development box) see these helpers degrade to
 the local mesh; the multi-host path follows the documented JAX distributed
-initialisation contract and is exercised for real only on a pod.
+initialisation contract and is exercised for real only on a cluster.
 """
 
 from __future__ import annotations
@@ -28,8 +28,8 @@ def initialize_distributed(
 ) -> None:
     """Join the JAX process group (no-op if already initialised or solo).
 
-    On Cloud TPU pods all three arguments are auto-detected from the
-    environment; pass them explicitly for manual clusters.  Benign failures
+    Where the cluster environment provides them (e.g. SLURM), all three
+    arguments are auto-detected; pass them explicitly otherwise.  Benign failures
     (double initialisation; single-process runs with nothing to auto-detect)
     degrade to solo with a warning; genuine pod init failures re-raise when
     any coordination argument was given explicitly or ``strict=True`` — a
@@ -75,7 +75,7 @@ def make_distributed_system(
 ):
     """Build a ladder workload directly into mesh-sharded device arrays.
 
-    Per-row-block generation (VERDICT round 1, missing #4): every callback
+    Per-row-block generation: every callback
     invocation generates ONLY the requested row slab via the closed-form
     generators (``core.generators.system_rows``) — the global system never
     exists in any host's memory, so the 100M-row rung-5 workload assembles

@@ -36,6 +36,7 @@ from jax.sharding import Mesh, NamedSharding
 from jax.sharding import PartitionSpec as P
 
 from conjugategradient_tpu.core.formats import DiaMatrix
+from conjugategradient_tpu.ops.precision import MATMUL_PRECISION
 from conjugategradient_tpu.parallel.halo import (
     spmv_dia_allgather,
     spmv_dia_local_overlap,
@@ -47,7 +48,8 @@ from conjugategradient_tpu.solvers.policy import ConvergencePolicy
 
 def _pdot_fused(pairs, axis):
     parts = jnp.stack(
-        [jnp.dot(a.ravel(), b.ravel(), preferred_element_type=a.dtype) for a, b in pairs]
+        [jnp.dot(a.ravel(), b.ravel(), precision=MATMUL_PRECISION,
+                 preferred_element_type=a.dtype) for a, b in pairs]
     )
     return jax.lax.psum(parts, axis)
 
@@ -87,7 +89,8 @@ def sharded_bicgstab_loop(
         p_hat = M(p)
         v = op(p_hat)
         alpha = _safe_div(rho, jax.lax.psum(
-            jnp.dot(rhat.ravel(), v.ravel(), preferred_element_type=dtype), axis
+            jnp.dot(rhat.ravel(), v.ravel(), precision=MATMUL_PRECISION,
+                    preferred_element_type=dtype), axis
         ))
         s = r - alpha * v
         s_hat = M(s)
@@ -129,12 +132,13 @@ def sharded_gmres_loop(
     from Z locally — a shard-local ``M`` may then be NONLINEAR (e.g. a
     fixed-budget inner solve on the shard's diagonal block)."""
     pdot = lambda u, v: jax.lax.psum(
-        jnp.dot(u.ravel(), v.ravel(), preferred_element_type=u.dtype), axis
+        jnp.dot(u.ravel(), v.ravel(), precision=MATMUL_PRECISION,
+                preferred_element_type=u.dtype), axis
     )
-    # HIGHEST precision on the local Gram product — the TPU default's bf16
-    # operand truncation degrades CGS2 (see solvers.gmres._matdot_default)
+    # full precision on the local Gram product — a reduced-precision fp32
+    # matmul degrades CGS2 (see solvers.gmres._matdot_default)
     pmatdot = lambda V, w: jax.lax.psum(
-        jnp.matmul(V, w, precision=jax.lax.Precision.HIGHEST), axis
+        jnp.matmul(V, w, precision=MATMUL_PRECISION), axis
     )
     pmax_abs = lambda r: jax.lax.pmax(jnp.max(jnp.abs(r)), axis)
     return gmres_loop(
@@ -155,12 +159,12 @@ def sharded_idr_loop(
     from conjugategradient_tpu.solvers.idr import idr_loop
 
     pdot = lambda u, v: jax.lax.psum(
-        jnp.vdot(u, v, preferred_element_type=u.dtype), axis
+        jnp.vdot(u, v, precision=MATMUL_PRECISION, preferred_element_type=u.dtype), axis
     )
 
     def matdot(Pt, w):
         return jax.lax.psum(
-            jnp.matmul(Pt, w, precision=jax.lax.Precision.HIGHEST), axis
+            jnp.matmul(Pt, w, precision=MATMUL_PRECISION), axis
         )
 
     matdot.shard_axis = axis
@@ -181,7 +185,8 @@ def sharded_minres_loop(
     from conjugategradient_tpu.solvers.minres import minres_loop
 
     pdot = lambda u, v: jax.lax.psum(
-        jnp.dot(u.ravel(), v.ravel(), preferred_element_type=u.dtype), axis
+        jnp.dot(u.ravel(), v.ravel(), precision=MATMUL_PRECISION,
+                preferred_element_type=u.dtype), axis
     )
     pmax_abs = lambda r: jax.lax.pmax(jnp.max(jnp.abs(r)), axis)
     return minres_loop(
@@ -200,7 +205,8 @@ def sharded_lsmr_loop(
     from conjugategradient_tpu.solvers.lsmr import lsmr_loop
 
     pnorm = lambda v: jnp.sqrt(
-        jax.lax.psum(jnp.vdot(v, v, preferred_element_type=v.dtype).real, axis)
+        jax.lax.psum(jnp.vdot(v, v, precision=MATMUL_PRECISION,
+                              preferred_element_type=v.dtype).real, axis)
     )
     b_eff = b if x0 is None else b - op(x0)
     x, it, res, converged, _ = lsmr_loop(
@@ -221,7 +227,8 @@ def sharded_chebyshev_loop(
     from conjugategradient_tpu.solvers.cheby import chebyshev_loop
 
     pdot = lambda u, v: jax.lax.psum(
-        jnp.dot(u.ravel(), v.ravel(), preferred_element_type=u.dtype), axis
+        jnp.dot(u.ravel(), v.ravel(), precision=MATMUL_PRECISION,
+                preferred_element_type=u.dtype), axis
     )
     pmax_abs = lambda r: jax.lax.pmax(jnp.max(jnp.abs(r)), axis)
     return chebyshev_loop(
@@ -270,7 +277,8 @@ def sharded_chebyshev_block_loop(
     sigma = theta / delta
 
     pdot = lambda u, v: jax.lax.psum(
-        jnp.dot(u.ravel(), v.ravel(), preferred_element_type=u.dtype), axis
+        jnp.dot(u.ravel(), v.ravel(), precision=MATMUL_PRECISION,
+                preferred_element_type=u.dtype), axis
     )
     data_ext = extend_dia_data(data, H, axis, num)
     L = n_local + 2 * H

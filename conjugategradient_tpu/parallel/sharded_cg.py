@@ -1,6 +1,6 @@
 """Row-block-sharded CG over a device mesh — the flagship distributed solver.
 
-TPU-native re-design of the reference's multi-GPU CG host
+Device-mesh re-design of the reference's multi-GPU CG host
 (``Mgcg/cuBlas/Mgcg/ConjugateGradientParallelGpu.cs:11-596``).  Its per
 -iteration choreography was: host-threaded ``SyncP`` halo staging →
 ``Solve1`` fan-out (SpMV + partial p·Ap) → host allreduce alpha → ``Solve2``
@@ -37,6 +37,7 @@ from jax.sharding import PartitionSpec as P
 
 from conjugategradient_tpu.core.formats import DiaMatrix
 from conjugategradient_tpu.ops.blas import residual_norm as _residual_norm
+from conjugategradient_tpu.ops.precision import MATMUL_PRECISION
 from conjugategradient_tpu.parallel.halo import (
     spmv_dia_allgather,
     spmv_dia_local_overlap,
@@ -48,7 +49,8 @@ from conjugategradient_tpu.solvers.policy import ConvergencePolicy
 def _pdot(a, b, axis):
     # ravel: locals may be grid-shaped (the stencil MGCG path); for 1-D
     # inputs this is a no-op and lowers to the same fused dot
-    return jax.lax.psum(jnp.dot(a.ravel(), b.ravel(), preferred_element_type=a.dtype), axis)
+    return jax.lax.psum(jnp.dot(a.ravel(), b.ravel(), precision=MATMUL_PRECISION,
+                                preferred_element_type=a.dtype), axis)
 
 
 def _pdot_fused(pairs, axis):
@@ -63,7 +65,8 @@ def _pdot_fused(pairs, axis):
     point — this helper then makes them one wire message.
     """
     parts = jnp.stack(
-        [jnp.dot(a.ravel(), b.ravel(), preferred_element_type=a.dtype) for a, b in pairs]
+        [jnp.dot(a.ravel(), b.ravel(), precision=MATMUL_PRECISION,
+                 preferred_element_type=a.dtype) for a, b in pairs]
     )
     return jax.lax.psum(parts, axis)
 
@@ -131,11 +134,12 @@ def sharded_cg_loop(
         from conjugategradient_tpu.solvers.cacg import cacg_loop
 
         pdot = lambda u, v: jax.lax.psum(
-            jnp.dot(u.ravel(), v.ravel(), preferred_element_type=u.dtype), axis
+            jnp.dot(u.ravel(), v.ravel(), precision=MATMUL_PRECISION,
+                    preferred_element_type=u.dtype), axis
         )
         # HIGHEST precision on the local Gram block (cf. solvers.cacg)
         pgram = lambda V: jax.lax.psum(
-            jnp.matmul(V, V.T, precision=jax.lax.Precision.HIGHEST), axis
+            jnp.matmul(V, V.T, precision=MATMUL_PRECISION), axis
         )
         return cacg_loop(
             op, b, x0, policy, int(s), dot=pdot, gram=pgram,

@@ -7,7 +7,7 @@ discovers the exact column window [minJ, maxJ] its rows touch at init time
 iteration (``ConjugateGradientParallelGpu.cs:384-419``), falling back to a
 global-length ``vectorP`` (:321) when the window is the whole vector.
 
-This module is the TPU-native re-design of that general case:
+This module is the device-mesh re-design of that general case:
 
 - the exact ranges are computed on host at partition time
   (``core.partition.halo_ranges_from_csr`` — the native twin is

@@ -1,7 +1,7 @@
 """Preconditioners: point Jacobi, Chebyshev smoothing, geometric multigrid.
 
 The "Mg" the reference's name promises but never ships (SURVEY.md §0); built
-fresh, TPU-first (static hierarchies, traced V-cycles, MXU coarse solves).
+fresh for the device (static hierarchies, traced V-cycles, dense coarse solves).
 """
 
 from conjugategradient_tpu.precond import smoothers, transfer  # noqa: F401

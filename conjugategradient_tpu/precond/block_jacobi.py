@@ -7,8 +7,8 @@ solve iteration.  No reference analogue (its only preconditioning trace is
 the commented-out ViennaCL ``jacobi_precond``,
 ``Mgcg/ViennaCL/Mgcg/ComputerGpu.cpp:96-101``).
 
-TPU fit: the apply is ``einsum('bij,bj->bi', B_inv, r)`` — an
-``(nb, bs, bs) @ (nb, bs)`` batched matmul the MXU eats directly; for
+Device fit: the apply is ``einsum('bij,bj->bi', B_inv, r)`` — one
+``(nb, bs, bs) @ (nb, bs)`` batched matmul at ``MATMUL_PRECISION``; for
 multi-RHS it batches over columns too.  SPD A with SPD blocks gives an SPD
 M (valid for CG); nonsymmetric A works with BiCGStab/GMRES (right
 preconditioning).  Shard-equivariance: when ``block_size`` divides the
@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from conjugategradient_tpu.core.formats import CsrMatrix, _any_to_csr
+from conjugategradient_tpu.ops.precision import MATMUL_PRECISION
 
 
 def block_jacobi_blocks(A, block_size: int) -> np.ndarray:
@@ -86,7 +87,8 @@ def block_jacobi_M_local(r_local, aux_local):
     B = aux_local.reshape(n_local // bs, bs, bs)
     R = r_local.reshape(n_local // bs, bs)
     return jnp.einsum(
-        "bij,bj->bi", B, R, preferred_element_type=r_local.dtype
+        "bij,bj->bi", B, R, precision=MATMUL_PRECISION,
+        preferred_element_type=r_local.dtype
     ).reshape(n_local)
 
 
@@ -116,7 +118,7 @@ def block_jacobi_preconditioner(
             flat = jnp.pad(flat, ((0, pad), (0, 0)))
         out = jnp.einsum(
             "bij,bjk->bik", Binv, flat.reshape(nb, bs, -1),
-            preferred_element_type=flat.dtype,
+            precision=MATMUL_PRECISION, preferred_element_type=flat.dtype,
         ).reshape(nb * bs, -1)
         return out[:n].reshape(shape)
 

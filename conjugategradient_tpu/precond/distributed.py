@@ -48,6 +48,7 @@ from conjugategradient_tpu.core.formats import StencilMatrix, stencil_to_dia
 from conjugategradient_tpu.ops.stencil import spmv_stencil_roll
 from conjugategradient_tpu.precond import transfer
 from conjugategradient_tpu.precond.multigrid import MgHierarchy, MgLevel
+from conjugategradient_tpu.ops.precision import MATMUL_PRECISION
 
 GridShape = Tuple[int, ...]
 
@@ -102,7 +103,8 @@ def _near_null_dev(A: StencilMatrix):
     alt = _checkerboard(A.grid, A.dtype)
 
     def q(z):
-        return jnp.vdot(z, spmv_stencil_roll(A, z)) / jnp.vdot(z, z)
+        zAz = jnp.vdot(z, spmv_stencil_roll(A, z), precision=MATMUL_PRECISION)
+        return zAz / jnp.vdot(z, z, precision=MATMUL_PRECISION)
 
     return q(ones), q(alt)
 
@@ -119,13 +121,13 @@ def _lam_max_dev(A: StencilMatrix, inv_diag: jnp.ndarray, iters: int = 30):
         i = jax.lax.broadcasted_iota(jnp.int32, A.grid, ax)
         idx = i if idx is None else idx * A.grid[ax] + i
     v0 = jnp.sin(0.7 * idx.astype(A.dtype)) + 0.1
-    v0 = v0 / jnp.sqrt(jnp.vdot(v0, v0))
+    v0 = v0 / jnp.sqrt(jnp.vdot(v0, v0, precision=MATMUL_PRECISION))
 
     def body(_, carry):
         v, lam = carry
         w = inv_diag * spmv_stencil_roll(A, v)
-        lam = jnp.vdot(w, v)
-        nw = jnp.sqrt(jnp.vdot(w, w))
+        lam = jnp.vdot(w, v, precision=MATMUL_PRECISION)
+        nw = jnp.sqrt(jnp.vdot(w, w, precision=MATMUL_PRECISION))
         return (w / jnp.where(nw == 0, 1.0, nw), lam)
 
     _, lam = jax.lax.fori_loop(0, iters, body, (v0, jnp.zeros((), A.dtype)))
@@ -330,7 +332,7 @@ def build_hierarchy_probed(
         shifts, g = new_shifts, gc
         center = shifts.index(tuple([0] * d))
 
-    # coarsest: tiny — gather, invert densely (MXU matvec at solve time).
+    # coarsest: tiny — gather, invert densely (one dense matvec at solve time).
     # Assemble dense straight from the legs: on very small grids distinct
     # shifts can alias the same flat DIA offset, so no DIA roundtrip.
     legs_h = host_read(legs)

@@ -3,7 +3,7 @@
 This is the capability the reference's name promises but never implements
 (SURVEY.md §0 "naming caveat": "Mgcg" = multigrid-preconditioned CG per
 ``Mgcg/cuBlas/Mgcg/MgcgMain.cs:8``, yet every solver in the repo is plain CG).
-Designed TPU-first:
+Designed for a device-resident solve:
 
 - **Setup is host-side and static.**  Coarse operators are the Galerkin
   products ``A_c = R A P`` computed once with scipy.sparse and converted back
@@ -12,7 +12,7 @@ Designed TPU-first:
 - **The cycle is one traced program.**  Levels form a static python list; the
   V-cycle recursion unrolls at trace time into a fixed DAG of SpMVs,
   restrictions, prolongations and smoother sweeps — no data-dependent control
-  flow, everything fused by XLA, MXU for the coarsest (dense) solve.
+  flow, everything fused by XLA, one dense matvec for the coarsest solve.
 - **Symmetric by construction.**  R = P^T / 2^d, identical pre/post smoothing
   — the V-cycle is then a symmetric positive definite operator, a valid PCG
   preconditioner (plug ``as_preconditioner`` into ``cg_solve(..., M=...)``).
@@ -41,6 +41,7 @@ from conjugategradient_tpu.core.formats import (
     dia_to_stencil,
     stencil_to_const,
 )
+from conjugategradient_tpu.ops.precision import MATMUL_PRECISION
 from conjugategradient_tpu.precond import transfer
 from conjugategradient_tpu.precond.smoothers import (
     chebyshev_smooth,
@@ -74,7 +75,7 @@ class MgLevel:
 class MgHierarchy:
     """Static multigrid hierarchy.  ``levels[0]`` is the fine grid; the
     coarsest level is solved directly with a precomputed dense inverse
-    (an MXU matvec — the TPU-friendly coarse solve)."""
+    (one dense matvec at ``MATMUL_PRECISION``)."""
 
     levels: Tuple[MgLevel, ...]
     coarse_inv: jnp.ndarray  # (nc, nc) dense inverse of the coarsest A
@@ -324,8 +325,8 @@ def build_hierarchy(
     when an axis becomes even.
 
     ``layout="stencil"`` (default) stores each level as a grid
-    ``StencilMatrix`` and the V-cycle runs on grid-shaped arrays — the TPU
-    roofline path (see ``ops.stencil``).  ``layout="dia"`` keeps flat DIA
+    ``StencilMatrix`` and the V-cycle runs on grid-shaped arrays — the
+    fast path (see ``ops.stencil``).  ``layout="dia"`` keeps flat DIA
     levels and flat vectors.
 
     ``sa_smooth_levels``: smooth the aggregation prolongator on only the
@@ -576,41 +577,12 @@ def build_hierarchy(
     )
 
 
-def _fused_cheb_ok(lvl: MgLevel, b, roll: bool) -> bool:
-    """Gate for the fused slab Chebyshev kernel (``ops.pallas_stencil.
-    cheb_smooth_const_pallas``): big 3-D const-stencil levels on TPU with a
-    scalar diagonal.  ``roll=True`` (the GSPMD cyclic-roll path) is excluded
-    — a pallas_call on the full array would fight the partitioner."""
-    import jax
-
-    from conjugategradient_tpu.ops.stencil import PALLAS_MIN_N
-
-    return (
-        not roll
-        and isinstance(lvl.A, ConstStencilMatrix)
-        and len(lvl.grid) == 3
-        and lvl.A.n >= PALLAS_MIN_N
-        and jnp.ndim(lvl.inv_diag) == 0
-        and b.dtype == jnp.float32
-        and jax.default_backend() == "tpu"
-        and all(all(abs(s) <= 1 for s in sh) for sh in lvl.A.shifts)
-    )
-
-
 def _smooth(h: MgHierarchy, lvl: MgLevel, op, b, x, sweeps: int,
-            post: bool = False, x_zero: bool = False, fused: bool = False):
+            post: bool = False):
     if sweeps <= 0:
         return x
     if h.smoother == "chebyshev":
         lo, hi = lvl.cheb_bounds
-        if fused:
-            from conjugategradient_tpu.ops.pallas_stencil import (
-                cheb_smooth_const_pallas,
-            )
-
-            return cheb_smooth_const_pallas(
-                lvl.A, b, None if x_zero else x, sweeps, hi, lo, lvl.inv_diag
-            )
         return chebyshev_smooth(op, lvl.inv_diag, b, x, sweeps, hi, lo)
     if h.smoother == "rbgs":
         fn = redblack_gs_smooth_reversed if post else redblack_gs_smooth
@@ -695,7 +667,6 @@ def v_cycle(
     h: MgHierarchy,
     b: jnp.ndarray,
     level: int = 0,
-    use_pallas: bool = False,
     roll: bool = False,
     gamma: int = 1,
     x0: Optional[jnp.ndarray] = None,
@@ -711,56 +682,40 @@ def v_cycle(
     from conjugategradient_tpu.ops.spmv import as_operator
 
     if level == len(h.levels):
-        y = jnp.dot(h.coarse_inv, b.reshape(-1), preferred_element_type=b.dtype)
+        y = jnp.dot(h.coarse_inv, b.reshape(-1), precision=MATMUL_PRECISION,
+                    preferred_element_type=b.dtype)
         return y.reshape(b.shape)
     lvl = h.levels[level]
-    op = as_operator(lvl.A, use_pallas=use_pallas, roll=roll)
+    op = as_operator(lvl.A, roll=roll)
     grid_native = isinstance(lvl.A, (StencilMatrix, ConstStencilMatrix))
     if grid_native and tuple(b.shape) != tuple(lvl.grid):
         # flat caller with a stencil hierarchy: run grid-shaped, return flat
         x0g = None if x0 is None else x0.reshape(lvl.grid)
-        return v_cycle(h, b.reshape(lvl.grid), level, use_pallas, roll, gamma, x0g).reshape(-1)
-    fused = h.smoother == "chebyshev" and _fused_cheb_ok(lvl, b, roll)
+        return v_cycle(h, b.reshape(lvl.grid), level, roll, gamma, x0g).reshape(-1)
     x = jnp.zeros_like(b) if x0 is None else x0
-    r_pre = None
-    if fused and h.pre > 0 and x0 is None:
-        # fused pre-smooth + residual: ONE kernel emits the smoothed x and
-        # r_s = D^{-1}(b - A x) — the level's dominant HBM traffic (smoothing
-        # sweeps + the correction residual) collapses to read-b + two writes
-        from conjugategradient_tpu.ops.pallas_stencil import (
-            cheb_smooth_const_pallas,
-        )
-
-        lo, hi = lvl.cheb_bounds
-        x, r_s = cheb_smooth_const_pallas(
-            lvl.A, b, None, h.pre, hi, lo, lvl.inv_diag, want_resid=True
-        )
-        r_pre = r_s / lvl.inv_diag
-    else:
-        x = _smooth(h, lvl, op, b, x, h.pre, x_zero=x0 is None, fused=fused)
+    x = _smooth(h, lvl, op, b, x, h.pre)
 
     rg, pg = _level_transfers(lvl, op)
 
-    def correct(x, r=None):
-        if r is None:
-            r = b - op(x)
+    def correct(x):
+        r = b - op(x)
         if grid_native:
             rc = rg(r)
-            ec = v_cycle(h, rc, level + 1, use_pallas, roll, gamma)
+            ec = v_cycle(h, rc, level + 1, roll, gamma)
             return x + pg(ec, lvl.grid)
         cg_shape = _coarse_shape_of(lvl.grid, lvl.transfer)
         rc = rg(r.reshape(lvl.grid)).reshape(-1)
-        ec = v_cycle(h, rc, level + 1, use_pallas, roll, gamma)
+        ec = v_cycle(h, rc, level + 1, roll, gamma)
         return x + pg(ec.reshape(cg_shape), lvl.grid).reshape(-1)
 
     reps = gamma if level > 0 else 1  # cycle index applies below the top
-    for j in range(reps):
-        x = correct(x, r_pre if j == 0 else None)
-    x = _smooth(h, lvl, op, b, x, h.post, post=True, fused=fused)
+    for _ in range(reps):
+        x = correct(x)
+    x = _smooth(h, lvl, op, b, x, h.post, post=True)
     return x
 
 
-def fmg(h: MgHierarchy, b: jnp.ndarray, use_pallas: bool = False, roll: bool = False) -> jnp.ndarray:
+def fmg(h: MgHierarchy, b: jnp.ndarray, roll: bool = False) -> jnp.ndarray:
     """Full multigrid: coarsest-first solve, prolong, one V-cycle per level.
 
     Produces an O(discretisation-accuracy) initial guess in one pass — the
@@ -779,33 +734,34 @@ def fmg(h: MgHierarchy, b: jnp.ndarray, use_pallas: bool = False, roll: bool = F
     # near-null space is not the constant)
     bs = [b]
     for lvl in h.levels:
-        rg, _ = _level_transfers(lvl, _as_op(lvl.A, use_pallas=use_pallas, roll=roll))
+        rg, _ = _level_transfers(lvl, _as_op(lvl.A, roll=roll))
         if grid_native:
             bs.append(rg(bs[-1]))
         else:
             bs.append(rg(bs[-1].reshape(lvl.grid)).reshape(-1))
     # coarsest: direct solve
     bc = bs[-1]
-    x = jnp.dot(h.coarse_inv, bc.reshape(-1), preferred_element_type=b.dtype).reshape(bc.shape)
+    x = jnp.dot(h.coarse_inv, bc.reshape(-1), precision=MATMUL_PRECISION,
+                preferred_element_type=b.dtype).reshape(bc.shape)
     # walk up: prolong + one V-cycle with that initial guess
     for level in range(len(h.levels) - 1, -1, -1):
         lvl = h.levels[level]
-        _, pg = _level_transfers(lvl, _as_op(lvl.A, use_pallas=use_pallas, roll=roll))
+        _, pg = _level_transfers(lvl, _as_op(lvl.A, roll=roll))
         if grid_native:
             x = pg(x, lvl.grid)
         else:
             cshape = _coarse_shape_of(lvl.grid, lvl.transfer)
             x = pg(x.reshape(cshape), lvl.grid).reshape(-1)
-        x = v_cycle(h, bs[level], level, use_pallas, roll, x0=x)
+        x = v_cycle(h, bs[level], level, roll, x0=x)
     return x.reshape(-1) if flat_in else x
 
 
 def as_preconditioner(
-    h: MgHierarchy, use_pallas: bool = False, roll: bool = False, gamma: int = 1
+    h: MgHierarchy, roll: bool = False, gamma: int = 1
 ) -> Callable[[jnp.ndarray], jnp.ndarray]:
     """M(r) = one V- (gamma=1) or W- (gamma=2) cycle — the "Mg" in MGCG.
     SPD by symmetric construction, so valid for ``cg_solve(..., M=...)``."""
-    return partial(v_cycle, h, level=0, use_pallas=use_pallas, roll=roll, gamma=gamma)
+    return partial(v_cycle, h, level=0, roll=roll, gamma=gamma)
 
 
 def mgcg_solve(
@@ -818,7 +774,6 @@ def mgcg_solve(
     pre: int = 2,
     post: int = 2,
     hierarchy: Optional[MgHierarchy] = None,
-    use_pallas: bool = False,
     precise_dot: bool = False,
     layout: str = "stencil",
     gamma: int = 1,
@@ -850,8 +805,7 @@ def mgcg_solve(
         b,
         x0,
         policy,
-        M=as_preconditioner(h, use_pallas=use_pallas, gamma=gamma),
-        use_pallas=use_pallas,
+        M=as_preconditioner(h, gamma=gamma),
         precise_dot=precise_dot,
     )
     if stencil:

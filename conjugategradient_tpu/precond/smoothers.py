@@ -4,7 +4,7 @@ Chebyshev polynomial smoothing.
 The only trace of preconditioning in the reference is a commented-out
 ViennaCL ``jacobi_precond`` call (``Mgcg/ViennaCL/Mgcg/ComputerGpu.cpp:96-101``)
 — here Jacobi is implemented for real, plus Chebyshev, which is the natural
-TPU smoother: it is built entirely from SpMV + axpy (no triangular solves, no
+device smoother: it is built entirely from SpMV + axpy (no triangular solves, no
 data-dependent ordering like Gauss-Seidel), so every application is the same
 fused streaming program the rest of the framework already optimises.
 
@@ -91,7 +91,7 @@ def chebyshev_preconditioner(
 
     For matrices with no grid structure to hang a multigrid hierarchy on
     (and where point Jacobi is too weak), a fixed matrix polynomial is the
-    TPU-natural middle ground: each application is ``degree`` SpMVs + fused
+    device-natural middle ground: each application is ``degree`` SpMVs + fused
     axpys — no triangular solves, no data-dependent ordering — and, unlike a
     tolerance-controlled inner solve, it is a FIXED linear SPD operator, so
     plain (non-flexible) CG theory applies.  Bounds must cover the whole

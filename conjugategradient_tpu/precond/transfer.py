@@ -2,7 +2,7 @@
 
 New capability (SURVEY.md §7 layer 5): the reference's "Mgcg" name promises
 multigrid (マルチグリッド前処理付き共役勾配法, ``Mgcg/cuBlas/Mgcg/MgcgMain.cs:8``)
-but implements none — these operators are designed fresh for TPU.
+but implements none — these operators are designed fresh for the device.
 
 Geometry: a d-dimensional tensor grid of *interior* points (Dirichlet), each
 axis of odd size ``n = 2m + 1``; the coarse axis keeps the ``m`` odd-indexed
@@ -13,7 +13,7 @@ points.  1-D stencils (the classics):
 - restriction ``R = P^T / 2`` per axis: ``rc[j] = (rf[2j] + 2 rf[2j+1] + rf[2j+2]) / 4``.
 
 d-dimensional operators are the per-axis tensor (Kronecker) products, applied
-axis-by-axis on the device as *static strided slices* — pure VPU traffic, no
+axis-by-axis on the device as *static strided slices* — pure streaming, no
 gathers, fully fused by XLA.  The same operators are assembled as scipy
 sparse matrices host-side for the Galerkin coarse-operator product
 (``coarse.py``), guaranteeing the device transfers and the coarse operators
@@ -300,7 +300,7 @@ def prolong_hybrid_matrix(fine: GridShape) -> sp.csr_matrix:
 # 127x127 at coefficient ratio 1:1/0.1/0.01/0.001 the MGCG iteration count
 # climbs 6 / 15 / 47 / 130.  Coarsening just the strong axes (classic
 # semicoarsening; Trottenberg et al. §5.1) restores O(1) iterations and is
-# TPU-trivial: the transfers are the SAME per-axis operators applied to a
+# trivial on the device: the transfers are the SAME per-axis operators applied to a
 # subset of axes (identity on the rest), still one Kronecker product on the
 # host side.  Each coarsened axis picks fw (odd) or cc (even) by parity,
 # exactly like the hybrid transfers.

@@ -10,7 +10,7 @@ iteration, constant memory, no restart parameter.
 Architecture mirrors ``solvers.cg``: the WHOLE loop is one jitted
 ``lax.while_loop`` — matrices enter as pytree arguments, scalars (rho,
 alpha, omega, the residual) never leave the device, and the convergence
-predicate is evaluated on-chip (the placement lesson of
+predicate is evaluated on the device (the placement lesson of
 ``Mgcg/cuBlas/MgcgGpu/Mgcg.cu:201-270``).
 
 Preconditioning is right-sided: ``A M^-1 (M x) = b``, applied as
@@ -47,7 +47,6 @@ def bicgstab_solve(
     policy: ConvergencePolicy = ConvergencePolicy(),
     M: Optional[Callable] = None,
     precise_dot: bool = False,
-    use_pallas: bool = False,
 ) -> CGResult:
     """Solve A x = b (A square, possibly nonsymmetric) by right-
     preconditioned BiCGStab, fully on device.
@@ -57,7 +56,7 @@ def bicgstab_solve(
     it must be a fixed LINEAR operator.  Returns a ``CGResult``; shape-
     agnostic like ``cg_solve`` (grid-shaped or flat b).
     """
-    op = as_operator(A, use_pallas=use_pallas)
+    op = as_operator(A)
     n = b.size
     dtype = b.dtype
     tol = jnp.asarray(policy.tol, dtype)
@@ -111,7 +110,6 @@ def bicgstab_solve_traced(
     M: Optional[Callable] = None,
     num_steps: int = 100,
     precise_dot: bool = False,
-    use_pallas: bool = False,
 ):
     """Fixed-length BiCGStab recording the residual at every iteration —
     the nonsymmetric twin of ``cg_solve_traced`` (one ``lax.scan``, frozen
@@ -121,7 +119,7 @@ def bicgstab_solve_traced(
     Returns ``(CGResult, residual_history)``.  Entries past ``iterations``
     are from frozen steps; truncate before use.
     """
-    op = as_operator(A, use_pallas=use_pallas)
+    op = as_operator(A)
     dtype = b.dtype
     tol = jnp.asarray(policy.tol, dtype)
     min_iter = jnp.int32(policy.min_iteration)

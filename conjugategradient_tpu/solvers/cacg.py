@@ -14,7 +14,7 @@ How: per outer step, build the 2s+1-column Krylov basis
     V = [p, Ap, ..., A^s p,  r, Ar, ..., A^{s-1} r]
 
 (2s-1 SpMVs), form the Gram matrix G = V^T V with ONE (m, n) @ (n, m)
-matmul — MXU work, one psum when sharded — then run s standard CG steps
+matmul — one psum when sharded — then run s standard CG steps
 entirely in the m = 2s+1-dimensional COORDINATE space: every inner dot is
 a G-weighted (m,) contraction and A's action is the exact shift matrix B
 (A V e_j = V e_{j+1} within the basis — the inner recurrence touches
@@ -30,14 +30,14 @@ wires), loses where SpMV dominates.  Numerics: the monomial basis
 conditions like kappa^s — keep s <= 4 in fp32 (default; s=6 converges
 honestly but slower, s=8's basis is too ill-conditioned to progress and the
 solver reports converged=False rather than lying — measured on 63^2
-Poisson).  The Gram and materialisation matmuls run at HIGHEST precision
-(the TPU default's bf16 operand truncation is fatal to G — same class as
-solvers.lobpcg).
+Poisson).  The Gram and materialisation matmuls run at ``MATMUL_PRECISION``
+(a reduced-precision fp32 matmul — TF32 or bf16 passes — is fatal to G;
+same class as solvers.lobpcg).
 
 Reference parity note: the reference's multi-GPU CG places one scalar
 allreduce per dot (`Mgcg/cuBlas/Mgcg/ConjugateGradientParallelGpu.cs:
-469-520`); this module is the TPU-native answer to that wire cost taken
-to its limit.
+469-520`); this module is the communication-avoiding answer to that wire
+cost taken to its limit.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ from conjugategradient_tpu.ops.spmv import as_operator
 from conjugategradient_tpu.solvers.cg import CGResult, _safe_div
 from conjugategradient_tpu.solvers.policy import ConvergencePolicy
 
-_PH = jax.lax.Precision.HIGHEST
+from conjugategradient_tpu.ops.precision import MATMUL_PRECISION
 
 
 def _shift_matrix(s: int, dtype) -> jnp.ndarray:
@@ -147,12 +147,12 @@ def cacg_loop(
                 ),
                 it_c < max_iter,
             )
-            w = jnp.matmul(B, pc, precision=_PH)
-            Gw = jnp.matmul(G, w, precision=_PH)
-            alpha = _safe_div(rr_c, jnp.vdot(pc, Gw))
+            w = jnp.matmul(B, pc, precision=MATMUL_PRECISION)
+            Gw = jnp.matmul(G, w, precision=MATMUL_PRECISION)
+            alpha = _safe_div(rr_c, jnp.vdot(pc, Gw, precision=MATMUL_PRECISION))
             xc2 = xc + alpha * pc
             rc2 = rc - alpha * w
-            rr2 = jnp.vdot(rc2, jnp.matmul(G, rc2, precision=_PH))
+            rr2 = jnp.vdot(rc2, jnp.matmul(G, rc2, precision=MATMUL_PRECISION))
             # clamp: coordinate-space rounding can push rr epsilon-negative
             rr2 = jnp.maximum(rr2, 0.0)
             beta = _safe_div(rr2, rr_c)
@@ -170,8 +170,8 @@ def cacg_loop(
             0, s, inner, (jnp.zeros(m, dtype), e_r, e_p, rr, it)
         )
         # materialise (two (m,) @ (m, n) matmuls, purely local)
-        x = x + jnp.matmul(xc, V, precision=_PH).reshape(shape)
-        p = jnp.matmul(pc, V, precision=_PH).reshape(shape)
+        x = x + jnp.matmul(xc, V, precision=MATMUL_PRECISION).reshape(shape)
+        p = jnp.matmul(pc, V, precision=MATMUL_PRECISION).reshape(shape)
         # RESIDUAL REPLACEMENT at the block boundary: the monomial basis
         # conditions like kappa^s, and the coordinate-space rr drifts —
         # MEASURED at s=6 fp32 on 63^2 Poisson: rr collapses and the solver
@@ -204,7 +204,6 @@ def cacg_solve(
     x0: Optional[jnp.ndarray] = None,
     policy: ConvergencePolicy = ConvergencePolicy(),
     s: int = 4,
-    use_pallas: bool = False,
 ) -> CGResult:
     """Solve SPD ``A x = b`` by s-step CG, fully on device.
 
@@ -218,8 +217,8 @@ def cacg_solve(
     """
     if int(s) < 1:
         raise ValueError("s must be >= 1")
-    op = as_operator(A, use_pallas=use_pallas)
+    op = as_operator(A)
     x = jnp.zeros_like(b) if x0 is None else x0.astype(b.dtype)
-    dot = lambda u, v: jnp.vdot(u, v, preferred_element_type=u.dtype)
-    gram = lambda V: jnp.matmul(V, V.T, precision=_PH)
+    dot = lambda u, v: jnp.vdot(u, v, precision=MATMUL_PRECISION, preferred_element_type=u.dtype)
+    gram = lambda V: jnp.matmul(V, V.T, precision=MATMUL_PRECISION)
     return cacg_loop(op, b, x, policy, int(s), dot=dot, gram=gram)

@@ -23,6 +23,7 @@ from conjugategradient_tpu.core.formats import transpose
 from conjugategradient_tpu.ops.spmv import as_operator
 from conjugategradient_tpu.solvers.cg import CGResult, cg_solve
 from conjugategradient_tpu.solvers.policy import ConvergencePolicy
+from conjugategradient_tpu.ops.precision import MATMUL_PRECISION
 
 
 def cgnr_solve(
@@ -49,7 +50,7 @@ def cgnr_solve(
     op = as_operator(A_dev)
     opT = as_operator(At_dev)
     r0 = b - op(jnp.zeros_like(b) if x0 is None else x0.astype(b.dtype))
-    rr0 = jnp.vdot(r0, r0, preferred_element_type=b.dtype)
+    rr0 = jnp.vdot(r0, r0, precision=MATMUL_PRECISION, preferred_element_type=b.dtype)
     res = cg_solve(
         lambda x: opT(op(x)),
         opT(b),
@@ -58,6 +59,6 @@ def cgnr_solve(
         precise_dot=precise_dot,
     )
     r = b - op(res.x)
-    rr = jnp.vdot(r, r, preferred_element_type=r.dtype)
+    rr = jnp.vdot(r, r, precision=MATMUL_PRECISION, preferred_element_type=r.dtype)
     true_res = residual_norm(r, rr, rr0, policy.norm)
     return dataclasses.replace(res, residual=true_res)

@@ -134,7 +134,6 @@ def chebyshev_solve(
     bounds: Optional[Tuple[float, float]] = None,
     check_every: int = 16,
     precise_dot: bool = False,
-    use_pallas: bool = False,
 ) -> CGResult:
     """Solve SPD ``A x = b`` by Chebyshev iteration.
 
@@ -146,7 +145,7 @@ def chebyshev_solve(
     against reduction count.
     """
     lo, hi = estimate_bounds(A) if bounds is None else bounds
-    op = as_operator(A, use_pallas=use_pallas)
+    op = as_operator(A)
     dtype = b.dtype
     x = jnp.zeros_like(b) if x0 is None else x0.astype(dtype)
     dot = lambda u, v: _dot(u, v, precise=precise_dot)

@@ -23,6 +23,7 @@ import numpy as np
 
 from conjugategradient_tpu.core import oracle
 from conjugategradient_tpu.core.formats import DenseMatrix, DiaMatrix
+from conjugategradient_tpu.ops.precision import MATMUL_PRECISION
 
 
 def jacobi_eigenvalues(
@@ -102,7 +103,7 @@ def power_iteration(
     def body(_, carry):
         v, lam = carry
         w = op(v)
-        lam = jnp.dot(w, v, preferred_element_type=w.dtype)
+        lam = jnp.dot(w, v, precision=MATMUL_PRECISION, preferred_element_type=w.dtype)
         nw = jnp.linalg.norm(w)
         return (w / jnp.where(nw == 0, 1.0, nw), lam)
 

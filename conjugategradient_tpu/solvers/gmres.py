@@ -7,12 +7,12 @@ monotone residual within a cycle, no breakdown conditions, the standard
 choice when BiCGStab's transpose-free recurrence stagnates (e.g. the
 ``scheme="central"`` convection-diffusion operator past cell-Peclet 2).
 
-TPU-first formulation — the design choices that differ from a CPU GMRES:
+Device-first formulation — the design choices that differ from a CPU GMRES:
 
 - The Krylov basis is ONE ``(m+1, n)`` array.  Orthogonalisation is
   classical Gram-Schmidt *done twice* (CGS2, Giraud et al., Num. Math. 101,
   2005): each pass is a pair of dense matmuls (``V @ w`` then ``h @ V``)
-  masked to the filled rows — MXU work with O(1) launches, instead of MGS's
+  masked to the filled rows — O(1) launches, instead of MGS's
   j sequential dot+axpy round-trips.  CGS2's orthogonality loss is
   O(eps) like MGS, unconditionally — it exists precisely to make
   block/matmul orthogonalisation safe.
@@ -49,13 +49,12 @@ from conjugategradient_tpu.ops.spmv import as_operator
 from conjugategradient_tpu.solvers.cg import CGResult, _apply_M, _safe_div
 from conjugategradient_tpu.solvers.policy import ConvergencePolicy
 
-# basis-sized matmuls run at HIGHEST precision: the TPU default truncates
-# fp32 matmul operands to bf16, which degrades CGS2 orthogonalisation and
-# the assembled correction (same failure class measured in solvers.lobpcg
-# at 511^2: default precision stalls, HIGHEST matches the CPU trajectory).
-# These are (m, n) @ (n,) matvecs — bandwidth-bound, so HIGHEST is free.
-_PH = jax.lax.Precision.HIGHEST
-_matdot_default = lambda V, w: jnp.matmul(V, w, precision=_PH)
+# basis-sized matmuls run at MATMUL_PRECISION: a reduced-precision fp32
+# matmul (TF32 or bf16 passes) degrades CGS2 orthogonalisation and the
+# assembled correction (same failure class as solvers.lobpcg).  These are
+# (m, n) @ (n,) matvecs — bandwidth-bound, so full precision is free.
+from conjugategradient_tpu.ops.precision import MATMUL_PRECISION
+_matdot_default = lambda V, w: jnp.matmul(V, w, precision=MATMUL_PRECISION)
 
 
 def gmres_loop(
@@ -150,9 +149,9 @@ def gmres_loop(
             # when sharded; the h @ V reconstruction is purely local)
             mask = (rows <= k).astype(dtype)
             h1 = mask * matdot(V, w)
-            w = w - jnp.matmul(h1, V, precision=_PH)
+            w = w - jnp.matmul(h1, V, precision=MATMUL_PRECISION)
             h2 = mask * matdot(V, w)
-            w = w - jnp.matmul(h2, V, precision=_PH)
+            w = w - jnp.matmul(h2, V, precision=MATMUL_PRECISION)
             h = h1 + h2
             wnorm = jnp.sqrt(dot(w, w))
             V = jnp.where(
@@ -201,9 +200,9 @@ def gmres_loop(
         g_solve = jnp.where(jnp.arange(m) < k, g[:m], 0.0)
         y = jax.scipy.linalg.solve_triangular(R, g_solve, lower=False)
         if flexible:
-            x = x + jnp.matmul(y, Z, precision=_PH)
+            x = x + jnp.matmul(y, Z, precision=MATMUL_PRECISION)
         else:
-            u = jnp.matmul(y, V[:m], precision=_PH)
+            u = jnp.matmul(y, V[:m], precision=MATMUL_PRECISION)
             x = x + (u if M_flat is None else M_flat(u))
         return x, it_total + k
 
@@ -304,7 +303,6 @@ def gmres_solve(
     M: Optional[Callable] = None,
     restart: int = 32,
     precise_dot: bool = False,
-    use_pallas: bool = False,
 ) -> CGResult:
     """Solve A x = b (A square, possibly nonsymmetric) by right-
     preconditioned GMRES(restart), fully on device.
@@ -317,7 +315,7 @@ def gmres_solve(
     m = int(restart)
     if m < 1:
         raise ValueError("restart must be >= 1")
-    op0 = as_operator(A, use_pallas=use_pallas)
+    op0 = as_operator(A)
     shape = b.shape
     dtype = b.dtype
     b_flat = b.reshape(-1)
@@ -347,7 +345,6 @@ def fgmres_solve(
     M: Optional[Callable] = None,
     restart: int = 32,
     precise_dot: bool = False,
-    use_pallas: bool = False,
 ) -> CGResult:
     """Solve A x = b by FLEXIBLE restarted GMRES (FGMRES, Saad 1993).
 
@@ -363,7 +360,7 @@ def fgmres_solve(
     m = int(restart)
     if m < 1:
         raise ValueError("restart must be >= 1")
-    op0 = as_operator(A, use_pallas=use_pallas)
+    op0 = as_operator(A)
     shape = b.shape
     dtype = b.dtype
     b_flat = b.reshape(-1)
@@ -391,7 +388,6 @@ def inner_solve_preconditioner(
     method: str = "bicgstab",
     iterations: int = 8,
     M: Optional[Callable] = None,
-    use_pallas: bool = False,
     bounds=None,
 ):
     """A fixed-budget inner Krylov solve of ``A z = v`` packaged as a
@@ -410,12 +406,12 @@ def inner_solve_preconditioner(
         from conjugategradient_tpu.solvers.bicgstab import bicgstab_solve
 
         return lambda v: bicgstab_solve(
-            A, v, policy=pol, M=M, use_pallas=use_pallas
+            A, v, policy=pol, M=M
         ).x
     if method == "cg":
         from conjugategradient_tpu.solvers.cg import cg_solve
 
-        return lambda v: cg_solve(A, v, policy=pol, M=M, use_pallas=use_pallas).x
+        return lambda v: cg_solve(A, v, policy=pol, M=M).x
     if method == "chebyshev":
         from conjugategradient_tpu.solvers.cheby import chebyshev_solve, estimate_bounds
 

@@ -11,8 +11,8 @@ subspaces: finite termination in at most n + n/s matvecs in exact
 arithmetic, GMRES-like robustness as ``s`` grows, at fixed O(s·n) memory.
 ``s=4`` is the standard sweet spot; ``s=1`` is mathematically BiCGStab.
 
-TPU shape: the shadow-space products ``P^T r`` / ``P^T g`` are (s, n) @ (n,)
-MXU matmuls (HIGHEST precision — the repo-wide rule for reductions feeding
+Device shape: the shadow-space products ``P^T r`` / ``P^T g`` are (s, n) @ (n,)
+matmuls (``MATMUL_PRECISION`` — the repo-wide rule for reductions feeding
 direction logic); the inner k-loop over the s dimension-reduction steps is
 statically unrolled (s is small and static), every small triangular solve is
 an (s-k)×(s-k) static-shape ``jax.scipy.linalg.solve_triangular``, and the
@@ -42,7 +42,7 @@ from conjugategradient_tpu.ops.spmv import as_operator
 from conjugategradient_tpu.solvers.cg import CGResult, _apply_M, _safe_div
 from conjugategradient_tpu.solvers.policy import ConvergencePolicy
 
-_PH = jax.lax.Precision.HIGHEST
+from conjugategradient_tpu.ops.precision import MATMUL_PRECISION
 
 
 def idr_loop(
@@ -93,7 +93,7 @@ def idr_loop(
     min_iter = jnp.int32(policy.min_iteration)
     max_iter = jnp.int32(policy.resolve_max(n))
     if dot is None:
-        dot = lambda u, v: jnp.vdot(u, v, preferred_element_type=dtype)
+        dot = lambda u, v: jnp.vdot(u, v, precision=MATMUL_PRECISION, preferred_element_type=dtype)
     if pmax_abs is None:
         pmax_abs = lambda r: jnp.max(jnp.abs(r))
 
@@ -102,7 +102,7 @@ def idr_loop(
     rr0 = dot(r, r)
 
     # shadow space: s column-normalized random vectors, rows of Pt (s, n) —
-    # the (s, n) @ (n,) products are the MXU form.  Column normalization
+    # the (s, n) @ (n,) products are one matmul each.  Column normalization
     # (not QR): IDR's theory needs only a full-rank random P, random
     # Gaussian columns are near-orthogonal at scale anyway, and dropping
     # the QR removes an O(n s^2) replicated factorization from the sharded
@@ -122,7 +122,7 @@ def idr_loop(
         Pt = jax.lax.dynamic_slice_in_dim(Pm.T, i * b.size, b.size, axis=1)
 
     if matdot is None:
-        pdot = lambda v: jnp.matmul(Pt, v.reshape(-1), precision=_PH)  # (s,)
+        pdot = lambda v: jnp.matmul(Pt, v.reshape(-1), precision=MATMUL_PRECISION)  # (s,)
     else:
         pdot = lambda v: matdot(Pt, v.reshape(-1))
 
@@ -154,11 +154,11 @@ def idr_loop(
             c = jax.scipy.linalg.solve_triangular(
                 Ms[k:, k:], f[k:], lower=True
             )
-            # HIGHEST precision: these combines feed the shadow Gram and
-            # the triangular solves (the repo-wide TPU matmul rule)
-            v = r - jnp.tensordot(c, G[k:], axes=1, precision=_PH)
+            # full precision: these combines feed the shadow Gram and the
+            # triangular solves (the repo-wide MATMUL_PRECISION rule)
+            v = r - jnp.tensordot(c, G[k:], axes=1, precision=MATMUL_PRECISION)
             v_hat = _apply_M(M, v)
-            u_k = jnp.tensordot(c, U[k:], axes=1, precision=_PH) + om * v_hat
+            u_k = jnp.tensordot(c, U[k:], axes=1, precision=MATMUL_PRECISION) + om * v_hat
             g_k = op(u_k)
             # biorthogonalize g_k against the already-updated p_0..p_{k-1}
             # (single-row shadow dots — a full pdot here would waste an

@@ -9,9 +9,9 @@ smallest eigenpairs of a sparse SPD operator from SpMM passes only — and
 accepts the framework's own preconditioners (a multigrid V-cycle through
 ``solvers.multi.as_multi_preconditioner`` makes it a multigrid eigensolver).
 
-Why it fits TPU unusually well: every inner product in the method is a
-``(3k, n) @ (n, 3k)`` Gram matmul and every basis update a ``(n, 3k) @
-(3k, k)`` matmul — MXU work — while the only non-matmul pieces (two 3k x 3k
+Why it fits the device unusually well: every inner product in the method is
+a ``(3k, n) @ (n, 3k)`` Gram matmul and every basis update a ``(n, 3k) @
+(3k, k)`` matmul, while the only non-matmul pieces (two 3k x 3k
 symmetric eigendecompositions) are tiny.  The whole iteration is one jitted
 ``lax.while_loop``; eigenvalues never leave the device.
 
@@ -69,20 +69,19 @@ jax.tree_util.register_dataclass(
 )
 
 
-# every Gram/projection/update matmul runs at HIGHEST precision: the TPU
-# default (bf16 passes) corrupts the whitening eigendecomposition — measured
-# on chip at 511^2 Poisson: default precision leaves max(res) stuck ~1e-1
-# for 200 iterations with 20% eigenvalue error, HIGHEST converges in 4
-# iterations matching the CPU fp32 trajectory
-_PH = jax.lax.Precision.HIGHEST
+# every Gram/projection/update matmul runs at MATMUL_PRECISION: a
+# reduced-precision fp32 matmul (TF32 or bf16 passes) corrupts the whitening
+# eigendecomposition — max(res) stalls near 1e-1 with ~20% eigenvalue error,
+# where full precision converges in a few iterations
+from conjugategradient_tpu.ops.precision import MATMUL_PRECISION
 
 
 def _dotc(a, b):
-    return jnp.matmul(a, b, precision=_PH)
+    return jnp.matmul(a, b, precision=MATMUL_PRECISION)
 
 
 def _colsq(S):
-    return jnp.einsum("nj,nj->j", S, S, precision=_PH)
+    return jnp.einsum("nj,nj->j", S, S, precision=MATMUL_PRECISION)
 
 
 def _spectral_orth(S, delta, BS=None):
@@ -103,7 +102,7 @@ def _spectral_orth(S, delta, BS=None):
     second B pass.
     """
     BS_ = S if BS is None else BS
-    norms = jnp.sqrt(jnp.einsum("nj,nj->j", S, BS_, precision=_PH))
+    norms = jnp.sqrt(jnp.einsum("nj,nj->j", S, BS_, precision=MATMUL_PRECISION))
     scale = jnp.where(norms > 0, norms, 1.0)[None, :]
     S = S / scale
     BS_ = BS_ / scale
@@ -204,7 +203,7 @@ def lobpcg(
         # correct even though the whitened basis mixes the X/W/P blocks;
         # B-inner projector when generalized: X is B-orthonormal)
         P_new = X_new - _dotc(X, _dotc(BX.T, X_new))
-        lam_new = jnp.einsum("nk,nk->k", X_new, AXn, precision=_PH)
+        lam_new = jnp.einsum("nk,nk->k", X_new, AXn, precision=MATMUL_PRECISION)
         Rn = AXn - BXn * lam_new[None, :]
         res = jnp.sqrt(_colsq(Rn)) / (jnp.abs(lam_new) + 1.0)
         return X_new, AXn, BXn, P_new, lam_new, res, it + 1
@@ -214,7 +213,7 @@ def lobpcg(
         return jnp.logical_and(jnp.max(res) >= tol, it < jnp.int32(max_iterations))
 
     AX0 = op(X)
-    lam0 = jnp.einsum("nk,nk->k", X, AX0, precision=_PH)
+    lam0 = jnp.einsum("nk,nk->k", X, AX0, precision=MATMUL_PRECISION)
     R0 = AX0 - BX * lam0[None, :]
     res0 = jnp.sqrt(_colsq(R0)) / (jnp.abs(lam0) + 1.0)
     X, _AX, _BX, P, lam, res, it = jax.lax.while_loop(

@@ -10,7 +10,7 @@ A^T b`` but numerically far better behaved, with monotonically decreasing
 ``||A^T r||`` whose value falls out of the recurrence for free (it is
 ``|zetabar|`` — the stopping test costs nothing).
 
-TPU shape: one SpMV with A and one with A^T per iteration (the transpose is
+Device shape: one SpMV with A and one with A^T per iteration (the transpose is
 built ONCE on host, ``core.formats.transpose``, and rides as a second
 operator argument), everything else is axpys and scalar rotations inside one
 jitted ``lax.while_loop`` — the same zero-host-crossings architecture as
@@ -44,10 +44,11 @@ from conjugategradient_tpu.core.formats import transpose
 from conjugategradient_tpu.ops.spmv import as_operator
 from conjugategradient_tpu.solvers.cg import CGResult, _safe_div
 from conjugategradient_tpu.solvers.policy import ConvergencePolicy
+from conjugategradient_tpu.ops.precision import MATMUL_PRECISION
 
 
 def _norm(v):
-    return jnp.sqrt(jnp.vdot(v, v, preferred_element_type=v.dtype).real)
+    return jnp.sqrt(jnp.vdot(v, v, precision=MATMUL_PRECISION, preferred_element_type=v.dtype).real)
 
 
 def lsmr_loop(

@@ -144,14 +144,13 @@ def minres_solve(
     policy: ConvergencePolicy = ConvergencePolicy(),
     M: Optional[Callable] = None,
     precise_dot: bool = False,
-    use_pallas: bool = False,
 ) -> CGResult:
     """Solve A x = b (A symmetric, possibly indefinite) by MINRES.
 
     ``M``: optional SPD preconditioner application.  Returns a
     ``CGResult``; shape-agnostic (grid-shaped or flat b).
     """
-    op = as_operator(A, use_pallas=use_pallas)
+    op = as_operator(A)
     dtype = b.dtype
     x = jnp.zeros_like(b) if x0 is None else x0.astype(dtype)
     dot = lambda u, v: _dot(u, v, precise=precise_dot)

@@ -81,7 +81,6 @@ def cg_solve_multi(
     X0: Optional[jnp.ndarray] = None,
     policy: ConvergencePolicy = ConvergencePolicy(),
     M=None,
-    use_pallas: bool = False,
     psum_axis: Optional[str] = None,
     n_global: Optional[int] = None,
 ) -> MultiCGResult:
@@ -94,15 +93,6 @@ def cg_solve_multi(
     multi-RHS MGCG — k Krylov recurrences sharing one matrix stream per
     iteration.
 
-    ``use_pallas=True`` with a flat DIA matrix routes the SpMM through the
-    multi-RHS column-major Pallas kernel (``ops.pallas_spmv.cm_apply_multi``)
-    — one 2 MB coefficient block per program serves all k slabs, so the
-    dominant matrix traffic is amortised k-fold on top of the kernel's
-    single-RHS roofline.  The whole Krylov state then lives column-major
-    (k, segp, 128): layout conversion happens twice per SOLVE, not twice per
-    SpMM (the ``make_cm_operator`` lesson); only an (n, k) preconditioner
-    still costs a round-trip per application.
-
     ``psum_axis`` runs the same loop inside ``shard_map``: ``A`` must then be
     a shard-local (n_local, k) operator (with its own halo collectives), and
     every per-column dot becomes ONE (k,)-vector ``psum`` over the mesh axis
@@ -110,36 +100,14 @@ def cg_solve_multi(
     ``n_global`` so the max-iteration policy sees the true system size.  See
     ``parallel.shard_multi.sharded_cg_multi_solve`` for the placed wrapper.
     """
-    if psum_axis is not None and use_pallas:
-        raise ValueError("psum_axis and use_pallas are mutually exclusive")
-    cm_plan = None
-    if use_pallas and isinstance(A, DiaMatrix):
-        from conjugategradient_tpu.ops import pallas_spmv as _ps
-
-        cm_plan = _ps.plan_dia_cm_multi(tuple(A.offsets), A.n)
-        op = lambda P: _ps.cm_apply_multi(A, P)
-    else:
-        op = _as_multi_operator(A)
+    op = _as_multi_operator(A)
     n, k = B.shape
     dtype = B.dtype
     tol = jnp.asarray(policy.tol, dtype)
     min_iter = jnp.int32(policy.min_iteration)
     max_iter = jnp.int32(policy.resolve_max(n_global if n_global is not None else n))
 
-    if cm_plan is not None:
-        # column-major state: columns lead, per-column scalars broadcast
-        # over the trailing (segp, 128) axes; padded rows are exact zeros
-        # (zero coefficients x zero pads), so dots/norms are unaffected
-        B = _ps.to_cm_multi(B, cm_plan)
-        if X0 is not None:
-            X0 = _ps.to_cm_multi(X0.astype(dtype), cm_plan)
-        cdot = lambda U, V: jnp.sum(U * V, axis=(1, 2))
-        cexp = lambda s: s[:, None, None]
-        clinf = lambda R: jnp.max(jnp.abs(R), axis=(1, 2))
-        M_work = None if M is None else (
-            lambda R: _ps.to_cm_multi(M(_ps.from_cm_multi(R, cm_plan)), cm_plan)
-        )
-    elif psum_axis is not None:
+    if psum_axis is not None:
         cdot = lambda U, V: jax.lax.psum(jnp.sum(U * V, axis=0), psum_axis)
         cexp = lambda s: s[None, :]
         clinf = lambda R: jax.lax.pmax(jnp.max(jnp.abs(R), axis=0), psum_axis)
@@ -199,10 +167,6 @@ def cg_solve_multi(
     )
     res = res_of(R, rr)
     converged = jnp.logical_and(res < tol, it >= min_iter)
-    if cm_plan is not None:
-        from conjugategradient_tpu.ops import pallas_spmv as _ps
-
-        X = _ps.from_cm_multi(X, cm_plan)
     return MultiCGResult(x=X, iterations=it, residual=res, converged=converged)
 
 

@@ -2,7 +2,7 @@
 (SURVEY.md §5 — the observability and durability layers the reference only
 had as Console.WriteLine and not at all, respectively)."""
 
-from conjugategradient_tpu.utils import checkpoint, reslog, spy, timers  # noqa: F401
+from conjugategradient_tpu.utils import checkpoint, reslog, runtime, spy, timers  # noqa: F401
 from conjugategradient_tpu.utils.checkpoint import (  # noqa: F401
     CGState,
     load_pytree,

@@ -72,6 +72,9 @@ def main() -> int:
 
     from conjugategradient_tpu import solve
     from conjugategradient_tpu.core import generators, oracle
+    from conjugategradient_tpu.utils.runtime import setup_compile_cache
+
+    setup_compile_cache()
 
     ok = True
 
@@ -174,7 +177,7 @@ def main() -> int:
     rsys = generators.banded_sin_system(4096, 32)
     for label, kw in (
         ("fp32 inner", {}),
-        ("bf16 matrix stream", {"use_pallas": True, "matrix_dtype": jnp.bfloat16}),
+        ("bf16 matrix stream", {"matrix_dtype": jnp.bfloat16}),
     ):
         rres = refined_solve(rsys.A, rsys.b, rsys.x0, tol=1e-8, norm="l2", **kw)
         r = rsys.b - oracle.spmv(rsys.A, rres.x)
@@ -249,7 +252,7 @@ def main() -> int:
     print("10. device-resident refinement (dd outer loop, scalar readbacks):")
     rres = solve(
         rsys.A, rsys.b, rsys.x0, method="refined", tol=1e-8,
-        device_residual=True, use_pallas=False,
+        device_residual=True,
     )
     r = rsys.b - oracle.spmv(rsys.A, rres.x)
     good = rres.converged and np.linalg.norm(r) < 1e-8

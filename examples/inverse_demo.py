@@ -44,6 +44,9 @@ def main() -> int:
     from conjugategradient_tpu.core import generators
     from conjugategradient_tpu.solvers.diff import cg_solve_implicit
     from conjugategradient_tpu.solvers.policy import ConvergencePolicy
+    from conjugategradient_tpu.utils.runtime import setup_compile_cache
+
+    setup_compile_cache()
 
     dtype = np.float64 if jax.config.jax_enable_x64 else np.float32
     sys_ = generators.banded_sin_system(args.n, args.band, dtype=dtype)

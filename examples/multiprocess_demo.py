@@ -1,12 +1,12 @@
 """Real multi-process distributed solve: N OS processes, one global mesh.
 
-Round-1 VERDICT (weak #6) flagged the multi-host story as "helpers plus a
-single-process degradation test".  This driver closes that: it launches N
+A multi-host story needs more than helpers plus a single-process
+degradation test.  This driver launches N
 *separate interpreter processes*, each of which
 
 - joins the JAX process group (``multihost.initialize_distributed`` with an
   explicit coordinator — the real `jax.distributed.initialize` contract used
-  on Cloud TPU pods, here over the CPU Gloo collectives backend);
+  on multi-host clusters, here over the CPU Gloo collectives backend);
 - builds the global 1-D mesh over all ``N x local_devices`` global devices
   (``multihost.global_mesh``);
 - assembles the workload straight into mesh-sharded arrays via the

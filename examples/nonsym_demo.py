@@ -38,9 +38,12 @@ def main() -> int:
 
     from conjugategradient_tpu import solve
     from conjugategradient_tpu.core import generators, oracle
+    from conjugategradient_tpu.utils.runtime import setup_compile_cache
 
-    on_tpu = jax.devices()[0].platform != "cpu"
-    dtype = np.float32 if (on_tpu or not jax.config.jax_enable_x64) else np.float64
+    setup_compile_cache()
+
+    on_accelerator = jax.devices()[0].platform != "cpu"
+    dtype = np.float32 if (on_accelerator or not jax.config.jax_enable_x64) else np.float64
     tol = max(args.tol, 1e-5) if dtype == np.float32 else args.tol
     grid = (args.side, args.side)
 

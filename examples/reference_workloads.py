@@ -54,9 +54,12 @@ def main() -> int:
     from conjugategradient_tpu.core import formats
     from conjugategradient_tpu.models import WORKLOADS
     from conjugategradient_tpu.utils import PhaseTimer
+    from conjugategradient_tpu.utils.runtime import setup_compile_cache
 
-    on_tpu = jax.devices()[0].platform != "cpu"
-    dtype = np.float32 if (on_tpu or not jax.config.jax_enable_x64) else np.float64
+    setup_compile_cache()
+
+    on_accelerator = jax.devices()[0].platform != "cpu"
+    dtype = np.float32 if (on_accelerator or not jax.config.jax_enable_x64) else np.float64
     print(f"backend={jax.devices()[0].platform} dtype={np.dtype(dtype).name} "
           f"sizes={'quick' if args.quick else 'reference-exact'}")
 

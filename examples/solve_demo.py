@@ -1,6 +1,6 @@
-"""End-to-end single-chip demo: generator -> device CG -> oracle validation.
+"""End-to-end single-device demo: generator -> device CG -> oracle validation.
 
-The TPU-native rebirth of the reference's standalone demo
+The device-resident rebirth of the reference's standalone demo
 (``SimpleConjugateGradient/SimpleConjugateGradient.cu:128-254``) and of the
 cuBlas driver's differential-validation flow
 (``Mgcg/cuBlas/Mgcg/MgcgMain.cs:41-178``): build a deterministic SPD system,
@@ -41,9 +41,11 @@ def main() -> int:
 
     from conjugategradient_tpu import ConvergencePolicy, cg_solve
     from conjugategradient_tpu.core import generators, oracle
+    from conjugategradient_tpu.utils.runtime import setup_compile_cache
 
-    on_tpu = jax.devices()[0].platform != "cpu"
-    dtype = np.float32 if (on_tpu or not jax.config.jax_enable_x64) else np.float64
+    setup_compile_cache()
+    on_accelerator = jax.devices()[0].platform != "cpu"
+    dtype = np.float32 if (on_accelerator or not jax.config.jax_enable_x64) else np.float64
     # fp32 storage cannot hit the reference's absolute 1e-8 against large ‖b‖;
     # switch to the ViennaCL relative-residual convention there.
     norm, tol = (args.norm, args.tol) if dtype == np.float64 else ("rel_l2", max(args.tol, 1e-5))

@@ -191,9 +191,9 @@ def test_amg_fgmres_gets_jacobi_smoother():
 
 
 def test_amg_level_operator_relayout():
-    """layout='auto' puts banded-structure levels in DIA (the measured 6.6x
-    on-chip cycle win, artifacts/r3s2_onchip.json) and keeps genuinely
-    irregular (permuted) levels in CSR; layout='csr' forces CSR."""
+    """layout='auto' puts banded-structure levels in DIA (static shifted
+    slices instead of CSR gathers) and keeps genuinely irregular (permuted)
+    levels in CSR; layout='csr' forces CSR."""
     import scipy.sparse as sp
 
     from conjugategradient_tpu.core.formats import CsrMatrix, DiaMatrix
@@ -230,43 +230,6 @@ def test_amg_level_operator_relayout():
     Pm = sp.csr_matrix((np.ones(len(perm)), (np.arange(len(perm)), perm)), shape=S.shape)
     hp = build_amg_hierarchy((Pm @ S @ Pm.T).tocsr(), dtype=np.float64)
     assert isinstance(hp.levels[0].A, CsrMatrix)  # no bandable structure
-
-
-def test_amg_pallas_level_ops_match_xla_path():
-    """use_pallas=True routes DIA-relayouted level operators through the
-    column-major Pallas kernel (the measured 10-20x flat-band TPU path);
-    the cycle must produce the same preconditioner action as the XLA path
-    (here via the interpret-mode kernel on CPU)."""
-    import jax.numpy as jnp
-
-    from conjugategradient_tpu.core import generators, oracle
-    from conjugategradient_tpu.core.io import from_scipy, to_scipy
-    from conjugategradient_tpu.precond.amg import amg_cg_solve, build_amg_hierarchy
-
-    # a FLAT banded workload: grid-inferable inputs now relayout to the
-    # stencil path (r5), so the DIA+Pallas route is exercised by the
-    # no-grid band family it actually serves
-    A_band = generators.banded_sin_matrix(4096, 16)
-    csr = from_scipy(to_scipy(A_band).tocsr())
-    b_band = np.ones(4096)
-    h_x = build_amg_hierarchy(csr, use_pallas=False)
-    h_p = build_amg_hierarchy(csr, use_pallas=True)
-    assert h_p.use_pallas and not h_x.use_pallas
-    # at least one level must actually be DIA-relayouted for this to test
-    from conjugategradient_tpu.core.formats import DiaMatrix
-
-    assert any(isinstance(l.A, DiaMatrix) and l.A.n >= 2048 for l in h_p.levels)
-    from conjugategradient_tpu.solvers.policy import ConvergencePolicy
-
-    pol = ConvergencePolicy(tol=1e-9, norm="rel_l2", max_iteration=200)
-    res_x, _ = amg_cg_solve(csr, b_band, policy=pol, hierarchy=h_x)
-    res_p, _ = amg_cg_solve(csr, b_band, policy=pol, hierarchy=h_p)
-    assert bool(res_x.converged) and bool(res_p.converged)
-    assert abs(int(res_x.iterations) - int(res_p.iterations)) <= 1
-    x_true = oracle.direct_solve(A_band, b_band)
-    for res in (res_x, res_p):
-        rel = np.linalg.norm(np.asarray(res.x) - x_true) / np.linalg.norm(x_true)
-        assert rel < 1e-7
 
 
 def test_blocked_aggregation_gather_free_and_auto_gates():
@@ -378,7 +341,7 @@ def test_nd_blocked_nonsym_beats_greedy_iterations():
     its = {}
     for aggname in ("greedy", "auto"):
         h = build_amg_hierarchy(
-            A_csr, smoother="jacobi", use_pallas=False, aggregation=aggname
+            A_csr, smoother="jacobi", aggregation=aggname
         )
         res = bicgstab_solve(h.levels[0].A, b, policy=pol, M=amg_preconditioner(h))
         assert bool(res.converged)

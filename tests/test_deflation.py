@@ -127,9 +127,9 @@ def test_deflation_composes_with_refinement():
 
     sys_, _ = _outlier_case(2048)
     defl = make_deflation(sys_.A, k=8, m=48)  # fp32, like the inner solves
-    base = refined_solve(sys_.A, sys_.b, tol=1e-10, use_pallas=False)
+    base = refined_solve(sys_.A, sys_.b, tol=1e-10)
     dres = refined_solve(
-        sys_.A, sys_.b, tol=1e-10, use_pallas=False, deflation=defl
+        sys_.A, sys_.b, tol=1e-10, deflation=defl
     )
     for res in (base, dres):
         assert res.converged
@@ -140,12 +140,14 @@ def test_deflation_composes_with_refinement():
 
 @pytest.mark.parametrize("device_residual", [False, True])
 def test_deflation_composes_with_cm_kernel_refinement(device_residual):
+    """Deflated inner solves on the gridless (flat DIA) refinement path,
+    host- and device-resident outer loops."""
     from conjugategradient_tpu.solvers.refine import refined_solve
 
     sys_, _ = _outlier_case(1024)
     defl = make_deflation(sys_.A, k=8, m=48)
     res = refined_solve(
-        sys_.A, sys_.b, tol=1e-9, use_pallas=True, deflation=defl,
+        sys_.A, sys_.b, tol=1e-9, deflation=defl,
         device_residual=device_residual,
     )
     assert res.converged

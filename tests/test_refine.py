@@ -81,7 +81,6 @@ def test_refined_solve_bf16_matrix_stream():
     sys_ = banded_sin_system(4096, 32, dtype=np.float64)
     res = refined_solve(
         sys_.A, sys_.b, sys_.x0, tol=1e-8, norm="l2",
-        use_pallas=True,  # interpret-mode CM kernel on CPU
         matrix_dtype=jnp.bfloat16,
     )
     assert res.converged
@@ -166,17 +165,7 @@ def test_device_residual_dia_flagship_contract():
     # the reference's absolute-1e-8 flagship contract, outer loop on device
     sys_ = banded_sin_system(4096, 16)
     res = refined_solve(
-        sys_.A, sys_.b, tol=1e-8, device_residual=True, use_pallas=False
-    )
-    assert res.converged
-    r = sys_.b - oracle.spmv(sys_.A, res.x)
-    assert np.linalg.norm(r) < 1e-8
-
-
-def test_device_residual_pallas_cm_inner():
-    sys_ = banded_sin_system(2048, 8)
-    res = refined_solve(
-        sys_.A, sys_.b, tol=1e-8, device_residual=True, use_pallas=True
+        sys_.A, sys_.b, tol=1e-8, device_residual=True
     )
     assert res.converged
     r = sys_.b - oracle.spmv(sys_.A, res.x)
@@ -184,9 +173,8 @@ def test_device_residual_pallas_cm_inner():
 
 
 def test_device_residual_redisc_const_hierarchy():
-    # the big-3D fp64-contract configuration (VERDICT r4 #3): device-resident
-    # dd outer loop over a REDISCRETIZED const-stencil hierarchy — the
-    # scripts/rung4_refined_onchip.py path, pinned here at toy scale
+    # the big-3D fp64-contract configuration: device-resident dd outer loop
+    # over a REDISCRETIZED const-stencil hierarchy, pinned here at toy scale
     from conjugategradient_tpu.core.generators import poisson_coarse_operator
     from conjugategradient_tpu.precond import build_hierarchy
 
@@ -221,7 +209,7 @@ def test_device_residual_x0_and_linf():
     sys_ = banded_sin_system(1024, 8)
     res = refined_solve(
         sys_.A, sys_.b, x0=sys_.x0, tol=1e-7, norm="linf",
-        device_residual=True, use_pallas=False,
+        device_residual=True,
     )
     assert res.converged
     r = sys_.b - oracle.spmv(sys_.A, res.x)
@@ -233,7 +221,7 @@ def test_device_residual_unreachable_tol_terminates():
     # zero dd residual (legal on tiny systems) — never loop or falsely claim
     sys_ = tridiagonal_system(255)
     res = refined_solve(
-        sys_.A, sys_.b, tol=1e-300, device_residual=True, use_pallas=False,
+        sys_.A, sys_.b, tol=1e-300, device_residual=True,
         max_outer=8,
     )
     assert res.outer_iterations <= 8
@@ -307,8 +295,7 @@ def test_refined_nonsymmetric_inner_bicgstab():
     sys_ = convection_diffusion_system(grid, eps=0.1)
     x_true = oracle.direct_solve(sys_.A, sys_.b)
     # gridless (plain DIA inner)
-    res = refined_solve(sys_.A, sys_.b, tol=1e-9, inner="bicgstab",
-                        use_pallas=False)
+    res = refined_solve(sys_.A, sys_.b, tol=1e-9, inner="bicgstab")
     assert res.converged
     r = sys_.b - oracle.spmv(sys_.A, res.x)
     assert np.linalg.norm(r) < 1e-9
@@ -333,7 +320,6 @@ def test_refined_nonsym_device_residual():
     sys_ = nonsymmetric_banded_system(2048, 16)
     res = refined_solve(
         sys_.A, sys_.b, tol=1e-10, inner="bicgstab", device_residual=True,
-        use_pallas=False,
     )
     assert res.converged
     r = sys_.b - oracle.spmv(sys_.A, res.x)
