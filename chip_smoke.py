@@ -3,6 +3,7 @@
 
     python chip_smoke.py                # phases (a)-(f) on one GPU
     python chip_smoke.py --four-cards   # the distributed solvers on four GPUs
+    python chip_smoke.py --hlo-dir DIR  # also write the timed programs' HLO
 
 Every phase drives the public entry points (``build_hierarchy`` +
 ``cg_solve``, ``refined_solve``, ``build_amg_hierarchy``, ``sharded_cg_solve``,
@@ -74,13 +75,24 @@ def memory_mb(compiled) -> dict:
             for k in keys}
 
 
-def compile_jit(fn, *args):
-    """AOT-compile ``jax.jit(fn)`` for ``args``; returns (compiled, seconds)."""
+#: Where ``compile_jit`` writes each named program's optimized HLO
+#: (``--hlo-dir``); None writes nothing.
+HLO_DIR: Path | None = None
+
+
+def compile_jit(fn, *args, name=None):
+    """AOT-compile ``jax.jit(fn)`` for ``args``; returns (compiled, seconds).
+    With ``HLO_DIR`` set, a named program's optimized HLO goes to
+    ``HLO_DIR/<name>.hlo.txt``: it shows which fusions XLA made."""
     import jax
 
     t0 = time.perf_counter()
     compiled = jax.jit(fn).lower(*args).compile()
-    return compiled, time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
+    if HLO_DIR is not None and name is not None:
+        HLO_DIR.mkdir(parents=True, exist_ok=True)
+        (HLO_DIR / f"{name}.hlo.txt").write_text(compiled.as_text())
+    return compiled, seconds
 
 
 def run_timed(compiled, *args):
@@ -110,40 +122,6 @@ def solution_gap(A64, b64, x, y) -> float:
 
     d = np.asarray(x, np.float64).reshape(-1) - np.asarray(y, np.float64).reshape(-1)
     return float(np.linalg.norm(oracle.spmv(A64, d)) / np.linalg.norm(b64))
-
-
-def per_step_seconds(step, x0, *operands, ks=(8, 72), tries=3) -> float:
-    """Device time of one ``x -> step(x, *operands)`` application: a
-    ``lax.scan`` chains k dependent steps inside one program, and two chain
-    lengths are differenced so dispatch and read-back cancel.  Best of
-    ``tries``.  Arrays the step reads go in ``operands``, so they stay
-    arguments and are not baked into the program as constants."""
-    import jax
-
-    best = {}
-    for k in ks:
-        def chain(x, *ops, k=k):
-            return jax.lax.scan(lambda c, _: (step(c, *ops), None), x, None, length=k)[0]
-
-        run = jax.jit(chain)
-        jax.block_until_ready(run(x0, *operands))
-        t = math.inf
-        for _ in range(tries):
-            t0 = time.perf_counter()
-            jax.block_until_ready(run(x0, *operands))
-            t = min(t, time.perf_counter() - t0)
-        best[k] = t
-    return max((best[ks[1]] - best[ks[0]]) / (ks[1] - ks[0]), 1e-12)
-
-
-def copy_rate_gb_s(n_words: int = 1 << 26) -> float:
-    """Same-run reference rate: one read + one write of an fp32 array per
-    step (``x * s``), on an array far larger than the card's L2."""
-    import jax.numpy as jnp
-
-    x = jnp.ones((n_words,), jnp.float32)
-    t = per_step_seconds(lambda c: c * jnp.float32(0.999999), x)
-    return 2 * 4 * n_words / t / 1e9
 
 
 def emit(phase: str, **fields) -> None:
@@ -220,6 +198,7 @@ def phase_level0_kernels(grid=(255, 255, 255), copy_words=1 << 26) -> dict:
 
     from conjugategradient_tpu.ops.spmv import as_operator
     from conjugategradient_tpu.precond.smoothers import chebyshev_smooth
+    from conjugategradient_tpu.utils.timers import copy_rate_gb_s, per_step_seconds
 
     grid = tuple(grid)
     system, h, b, _ = _mgcg_case(grid)
@@ -236,6 +215,8 @@ def phase_level0_kernels(grid=(255, 255, 255), copy_words=1 << 26) -> dict:
         ("cheb2_smoother",
          lambda x, b_: chebyshev_smooth(op, lvl.inv_diag, b_, x, 2, hi, lo), 3),
     ):
+        if HLO_DIR is not None:
+            compile_jit(step, x0, b, name=f"b_level0_{name}")
         t = per_step_seconds(step, x0, b)
         gb_s = words * 4 * n / t / 1e9
         rows[name] = {"us": t * 1e6, "min_bytes_gb_s": gb_s,
@@ -251,13 +232,14 @@ def phase_band_spmv(n=2_073_600, band=160, copy_words=1 << 26) -> dict:
 
     from conjugategradient_tpu.core import generators, oracle
     from conjugategradient_tpu.ops.spmv import spmv
+    from conjugategradient_tpu.utils.timers import copy_rate_gb_s, per_step_seconds
 
     t0 = time.perf_counter()
     A32 = generators.banded_sin_matrix(n, band, dtype=np.float32)
     setup_s = time.perf_counter() - t0
     A = A32.device_put()
     x = np.random.default_rng(1).standard_normal(n).astype(np.float32)
-    compiled, compile_s = compile_jit(spmv, A, jnp.asarray(x))
+    compiled, compile_s = compile_jit(spmv, A, jnp.asarray(x), name="c_dia_spmv")
     y = np.asarray(compiled(A, jnp.asarray(x)), np.float64)
     y_ref = oracle.spmv(A32, x.astype(np.float64))
     err = float(np.abs(y - y_ref).max() / np.abs(y_ref).max())
@@ -381,12 +363,55 @@ def ill_conditioned_pair(n: int, cond: float, seed: int = 0):
     return a, b, exact, realised
 
 
+def _split_model(x):
+    """numpy model of ``ops.precision._split`` for fp32: round away the
+    low 12 significand bits on the bit pattern."""
+    bits = x.view(np.uint32)
+    bits = (bits + np.uint32(1 << 11)) & ~np.uint32((1 << 12) - 1)
+    hi = bits.view(np.float32)
+    return hi.astype(np.float64), (x - hi).astype(np.float64)
+
+
+def cancelling_products(n: int, seed: int = 0):
+    """fp32 vectors (n even) whose products all round to exactly +1 or -1,
+    n/2 of each, while each exact product misses its rounded value by a
+    rounding error that carries the product's sign.  Any summation order
+    adds the rounded products exactly, to 0, so the exact dot is the sum of
+    the rounding errors alone (condition ~2^26): a plain fp32 dot returns
+    ~0, ``dot2`` recovers the sum to tree-sum accuracy only if its
+    error-free product is exact, and a broken split is off by O(1).
+    Only pairs are kept whose product rounds to 1 both at once and as
+    ``two_prod`` forms it, fl(hi*hi + cross terms).
+    Returns (a, b, exact dot as a Python float)."""
+    rng = np.random.default_rng(seed)
+    b = (1 + rng.random(4 * n)).astype(np.float32)
+    a = (1 / b.astype(np.float64)).astype(np.float32)
+    prod = a.astype(np.float64) * b.astype(np.float64)  # exact
+    (ah, al), (bh, bl) = _split_model(a), _split_model(b)
+    head = (ah * bh + (ah * bl + al * bh)).astype(np.float32)
+    ok = (prod.astype(np.float32) == 1.0) & (head == 1.0)
+    up = np.flatnonzero(ok & (prod > 1))[: n // 2]
+    down = np.flatnonzero(ok & (prod < 1))[: n - n // 2]
+    if len(up) + len(down) < n:
+        raise ValueError(f"drew too few cancelling pairs for n={n}")
+    pick = np.concatenate([up, down])
+    sign = np.where(prod[pick] > 1, 1, -1).astype(np.float32)
+    a, b = a[pick] * sign, b[pick]
+    exact = math.fsum(a.astype(np.float64) * b.astype(np.float64))
+    return a, b, exact
+
+
 def phase_eft(n=1 << 20, cond=1e8) -> dict:
     """(f): the error-free transforms compiled for the device.  Pass:
-    ``two_prod`` is exact on every element (p + e == a * b in fp64), and
+    ``two_prod`` is exact on every element (p + e == a * b in fp64);
     ``dd_dot`` is within 1e-5 relative of the exact dot at condition ~1e8
-    (double-float accuracy ~2^-48 x cond ~ 4e-7).  ``dot2`` and the plain
-    fp32 dot are reported beside them."""
+    (double-float accuracy ~2^-48 x cond ~ 4e-7); and on
+    ``cancelling_products`` both ``dot2`` and ``dd_dot`` are within 1e-5 of
+    the exact dot (a tree sum of n same-signed terms is good to
+    log2(n) x 2^-24 ~ 1.2e-6), where a broken split is off by O(1).
+    ``dot2``'s and the plain fp32 dot's errors at condition ~1e8 are
+    reported beside them: there ``dot2``'s own tree sum of the products
+    dominates, so it is not expected to beat the plain dot by much."""
     import jax
     import jax.numpy as jnp
 
@@ -399,17 +424,22 @@ def phase_eft(n=1 << 20, cond=1e8) -> dict:
     prod64 = pa.astype(np.float64) * pb.astype(np.float64)
     tp_err = float(np.abs(np.asarray(p, np.float64) + np.asarray(e, np.float64)
                           - prod64).max())
+    plain_dot = jax.jit(lambda u, v: jnp.vdot(u, v, precision=MATMUL_PRECISION))
+    dots = {"plain": plain_dot, "dot2": jax.jit(dot2), "dd_dot": jax.jit(dd_dot)}
     a, b, exact, realised = ill_conditioned_pair(n, cond)
-    ja, jb = jnp.asarray(a), jnp.asarray(b)
-    plain = float(jax.jit(lambda u, v: jnp.vdot(u, v, precision=MATMUL_PRECISION))(ja, jb))
-    d2 = float(jax.jit(dot2)(ja, jb))
-    ddv = float(jax.jit(dd_dot)(ja, jb))
-    rel = lambda v: abs(v - exact) / abs(exact)
-    out = {"n": n, "condition": realised, "two_prod_max_abs_err": tp_err,
-           "plain_rel_err": rel(plain), "dot2_rel_err": rel(d2),
-           "dd_dot_rel_err": rel(ddv)}
+    c_a, c_b, c_exact = cancelling_products(n)
+    out = {"n": n, "condition": realised, "two_prod_max_abs_err": tp_err}
+    for name, fn in dots.items():
+        v = float(fn(jnp.asarray(a), jnp.asarray(b)))
+        out[f"{name}_rel_err"] = abs(v - exact) / abs(exact)
+        v = float(fn(jnp.asarray(c_a), jnp.asarray(c_b)))
+        out[f"{name}_cancelling_rel_err"] = abs(v - c_exact) / abs(c_exact)
     check(tp_err == 0.0, f"two_prod is not exact on the device (max error {tp_err:.3e})")
-    check(rel(ddv) <= 1e-5, f"dd_dot relative error {rel(ddv):.3e} > 1e-5")
+    check(out["dd_dot_rel_err"] <= 1e-5,
+          f"dd_dot relative error {out['dd_dot_rel_err']:.3e} > 1e-5")
+    for name in ("dot2", "dd_dot"):
+        err = out[f"{name}_cancelling_rel_err"]
+        check(err <= 1e-5, f"{name} on cancelling products: relative error {err:.3e} > 1e-5")
     return out
 
 
@@ -551,7 +581,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--four-cards", action="store_true",
                     help="run only the distributed solvers, on four cards")
+    ap.add_argument("--hlo-dir", type=Path, default=None,
+                    help="write the optimized HLO of the named programs here")
     args = ap.parse_args(argv)
+    global HLO_DIR
+    HLO_DIR = args.hlo_dir
 
     import_package()
     from conjugategradient_tpu.utils.runtime import (

@@ -12,4 +12,9 @@ from conjugategradient_tpu.utils.checkpoint import (  # noqa: F401
 )
 from conjugategradient_tpu.utils.reslog import ResidualRecord, records_from_history  # noqa: F401
 from conjugategradient_tpu.utils.spy import spy as spy_plot  # noqa: F401
-from conjugategradient_tpu.utils.timers import PhaseTimer, profiler_trace  # noqa: F401
+from conjugategradient_tpu.utils.timers import (  # noqa: F401
+    PhaseTimer,
+    copy_rate_gb_s,
+    per_step_seconds,
+    profiler_trace,
+)

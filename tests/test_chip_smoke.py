@@ -113,6 +113,41 @@ def test_phase_eft():
     out = chip_smoke.phase_eft(n=1 << 12)
     assert out["two_prod_max_abs_err"] == 0.0
     assert 1e7 < out["condition"] < 1e9
+    assert out["dot2_cancelling_rel_err"] <= 1e-5
+    assert out["plain_cancelling_rel_err"] > 0.5  # the data tells them apart
+
+
+@pytest.mark.parametrize("n", [2, 1000, 1 << 14])
+def test_cancelling_products_round_to_zero_sum(n):
+    a, b, exact = chip_smoke.cancelling_products(n, seed=n)
+    assert a.dtype == b.dtype == np.float32 and a.shape == b.shape == (n,)
+    rounded = a * b  # fp32 products
+    assert set(np.abs(rounded).tolist()) == {1.0}
+    assert rounded.sum(dtype=np.float64) == 0.0
+    assert exact == math.fsum(a.astype(np.float64) * b.astype(np.float64)) > 0
+
+
+def test_cancelling_products_catch_a_dot_without_error_terms():
+    a, b, exact = chip_smoke.cancelling_products(1 << 12)
+    p = (a * b).astype(np.float64)  # what a dot2 with e == 0 would add up
+    assert abs(math.fsum(p) - exact) / exact == 1.0
+
+
+def test_split_model_matches_the_device_split():
+    from conjugategradient_tpu.ops.precision import _split
+
+    x = np.random.default_rng(5).standard_normal(4096).astype(np.float32)
+    hi, lo = _split(jax.numpy.asarray(x))
+    mhi, mlo = chip_smoke._split_model(x)
+    np.testing.assert_array_equal(np.asarray(hi, np.float64), mhi)
+    np.testing.assert_array_equal(np.asarray(lo, np.float64), mlo)
+
+
+def test_hlo_dir_writes_named_programs(tmp_path, monkeypatch):
+    monkeypatch.setattr(chip_smoke, "HLO_DIR", tmp_path / "hlo")
+    chip_smoke.phase_band_spmv(n=501, band=8, copy_words=1 << 12)
+    text = (tmp_path / "hlo" / "c_dia_spmv.hlo.txt").read_text()
+    assert "HloModule" in text and "fusion" in text
 
 
 def test_phase_failure_is_reported_not_raised(capsys):

@@ -33,6 +33,28 @@ def test_phase_timer_sync_and_report():
     assert set(t.as_dict()) == {"input", "solve"}
 
 
+@pytest.mark.parametrize("operand", [False, True])
+def test_per_step_seconds_differences_two_chains(operand):
+    import jax.numpy as jnp
+
+    from conjugategradient_tpu.utils import per_step_seconds
+
+    x0 = jnp.ones(4096, jnp.float32)
+    if operand:
+        t = per_step_seconds(lambda c, w: c * w, x0, jnp.full(4096, 0.5, jnp.float32),
+                             ks=(2, 6), tries=2)
+    else:
+        t = per_step_seconds(lambda c: c * 0.5, x0, ks=(2, 6), tries=2)
+    assert 0 < t < 1.0
+
+
+def test_copy_rate_is_positive_and_finite():
+    from conjugategradient_tpu.utils import copy_rate_gb_s
+
+    rate = copy_rate_gb_s(1 << 12, ks=(2, 10), tries=2)
+    assert np.isfinite(rate) and rate > 0
+
+
 def test_residual_records_roundtrip(tmp_path):
     sys_ = banded_sin_system(512, 8)
     res, hist = cg_solve_traced(
